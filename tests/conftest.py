@@ -28,6 +28,12 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch port's hand "
+        "kernels); skips without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

@@ -1,0 +1,181 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card. Every test here needs an NVIDIA GPU and skips without one.
+
+This file imports neither JAX nor tests/conftest.py, so it also runs where
+JAX is not installed:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from vtkcloudpoint_tpu.config import ClusterConfig, EngineConfig, ICPConfig
+from vtkcloudpoint_tpu_torch.cluster.dbscan import dbscan_blocks
+from vtkcloudpoint_tpu_torch.cluster.pipeline import cluster_scan
+from vtkcloudpoint_tpu_torch.kernels import dbscan as k_dbscan
+from vtkcloudpoint_tpu_torch.kernels import neighbor as k_nn
+from vtkcloudpoint_tpu_torch.kernels import shapes as k_shapes
+from vtkcloudpoint_tpu_torch.register.icp import icp
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _blobs(rng, n_clusters, pts_per, noise, spread, dims):
+    centers = rng.uniform(0.1, 0.9, (n_clusters, dims))
+    pts = [c + spread * rng.standard_normal((pts_per, dims))
+           for c in centers]
+    pts.append(rng.uniform(0, 1, (noise, dims)))
+    out = np.concatenate(pts)
+    return out[rng.permutation(len(out))]
+
+
+def _blocks(seed, B, cap, dims, fill=0.8):
+    rng = np.random.default_rng(seed)
+    coords = np.zeros((B, cap, dims), np.float32)
+    valid = np.zeros((B, cap), bool)
+    for b in range(B):
+        n = int(cap * fill)
+        pts = _blobs(rng, 4, (n - 20) // 4, n - 4 * ((n - 20) // 4), 0.02,
+                     dims)
+        slots = np.sort(rng.choice(cap, len(pts), replace=False))
+        coords[b, slots] = pts
+        valid[b, slots] = True
+    return coords, valid
+
+
+@pytest.mark.parametrize("metric", ["l1_motor", "signed_sum_xy", "l2_xyz"])
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("cap", [128, 1000, 1024])
+def test_dbscan_kernel_matches_plain(gpu, metric, dims, cap):
+    if metric == "signed_sum_xy" and dims == 3:
+        pytest.skip("signed_sum_xy is a 2D metric")
+    coords, valid = _blocks(cap + dims, 6, cap, dims)
+    c = torch.from_numpy(coords).to(gpu)
+    v = torch.from_numpy(valid).to(gpu)
+    eps = 0.03 if metric != "signed_sum_xy" else 0.01
+    k = k_dbscan.dbscan_blocks_cuda(c, v, eps, 6, metric)
+    p = dbscan_blocks(c, v, eps, 6, metric)
+    for key in ("label", "n_clusters", "core"):
+        assert torch.equal(k[key], p[key]), key
+    assert int(k["n_clusters"].sum()) > 0
+
+
+def test_dbscan_kernel_long_chain(gpu):
+    """One chain of 1024 points whose least index sits at the far end:
+    the fixpoint has to carry a label across the whole block."""
+    cap = 1024
+    x = np.linspace(0, 1, cap, dtype=np.float32)[::-1].copy()
+    coords = np.stack([x, np.zeros(cap, np.float32)], -1)[None]
+    c = torch.from_numpy(coords).to(gpu)
+    v = torch.ones(1, cap, dtype=torch.bool, device=gpu)
+    k = k_dbscan.dbscan_blocks_cuda(c, v, 1.5 / cap, 2)
+    p = dbscan_blocks(c, v, 1.5 / cap, 2)
+    for key in ("label", "n_clusters", "core"):
+        assert torch.equal(k[key], p[key]), key
+    assert int(k["n_clusters"][0]) == 1
+
+
+def test_dbscan_kernel_refuses_bad_input(gpu):
+    c = torch.zeros(2, 64, 2, device=gpu)
+    v = torch.ones(2, 64, dtype=torch.bool, device=gpu)
+    with pytest.raises(ValueError):
+        k_dbscan.dbscan_blocks_cuda(c.double(), v, 0.1, 3)
+    with pytest.raises(ValueError):
+        k_dbscan.dbscan_blocks_cuda(c.transpose(0, 1), v.t(), 0.1, 3)
+    with pytest.raises(ValueError):
+        k_dbscan.dbscan_blocks_cuda(torch.zeros(1, 4096, 2, device=gpu),
+                                    torch.ones(1, 4096, dtype=torch.bool,
+                                               device=gpu), 0.1, 3)
+    with pytest.raises(ValueError):
+        k_dbscan.dbscan_blocks_cuda(c, v, 0.1, 3, metric="cosine")
+
+
+def _clusters(seed, K, cap):
+    rng = np.random.default_rng(seed)
+    points = np.zeros((K, cap, 2), np.float32)
+    valid = np.zeros((K, cap), bool)
+    for k in range(K):
+        n = int(rng.integers(2, cap))
+        if k % 6 == 1:
+            pts = np.stack([np.linspace(0, 1, n), np.full(n, 0.5)], -1)
+        elif k % 6 == 2:
+            pts = np.array([[0.1, 0.2], [0.7, 0.9]])
+        elif k % 6 == 3:
+            pts = np.zeros((0, 2))
+        elif k % 6 == 4:        # duplicates on a tiny grid
+            pts = np.round(rng.uniform(0, 1, (n, 2)) * 4) / 4
+        else:
+            pts = rng.uniform(0.1, 0.9, 2) + 0.05 * rng.standard_normal(
+                (n, 2))
+        slots = np.sort(rng.choice(cap, len(pts), replace=False))
+        points[k, slots] = pts
+        valid[k, slots] = True
+    return points, valid
+
+
+@pytest.mark.parametrize("max_hull", [3, 8, 32])
+@pytest.mark.parametrize("cap", [64, 1024])
+def test_shapes_kernel_matches_plain(gpu, max_hull, cap):
+    points, valid = _clusters(max_hull + cap, 36, cap)
+    p = torch.from_numpy(points).to(gpu)
+    v = torch.from_numpy(valid).to(gpu)
+    kout = k_shapes.shapes_cuda(p, v, max_hull)
+    pout = k_shapes.shapes_plain(p, v, max_hull, chunk_k=16, tri_chunk=97)
+    for a, b in zip(kout, pout):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (300, 257), (1024, 450),
+                                 (2000, 4097)])
+def test_nn_kernel_matches_plain(gpu, n, m):
+    rng = np.random.default_rng(n + m)
+    q = torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(np.float32)).to(gpu)
+    r = torch.from_numpy(rng.uniform(0, 1, (m, 3)).astype(np.float32)).to(gpu)
+    r[m // 2:m // 2 + 3] = r[m // 3]              # exact ties
+    rv = torch.from_numpy(rng.random(m) < 0.85).to(gpu)
+    rv[m // 3] = True
+    for ref_valid in (rv, torch.zeros_like(rv)):
+        ki, kd = k_nn.nn_cuda(q, r, ref_valid)
+        pi, pd = k_nn.nn_plain(q, r, ref_valid, chunk=512)
+        assert torch.equal(ki, pi)
+        assert torch.equal(kd, pd)
+
+
+def test_pipeline_on_card_equals_cpu(gpu):
+    rng = np.random.default_rng(3)
+    motor = _blobs(rng, 12, 150, 200, 0.01, 2).astype(np.float32)
+    n = len(motor)
+    xyz = np.concatenate([motor, np.ones((n, 1), np.float32)], 1)
+    truth = np.concatenate([rng.uniform(0, 1, (40, 2)), np.ones((40, 1))],
+                           1).astype(np.float32)
+    cfg = EngineConfig(cluster=ClusterConfig(eps=0.02, min_pts=6,
+                                             block_capacity=256))
+    kw = dict(mode="balanced", max_blocks=(n + 255) // 256, quirks=False,
+              noise_capacity=1024, max_clusters=128, cluster_capacity=512,
+              max_hull=32)
+    runs = {}
+    for dev in ("cpu", gpu):
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        res = cluster_scan(t(xyz), t(motor), valid, cfg, **kw)
+        reg = icp(res.center3d, res.count > 0, t(truth),
+                  torch.ones(40, dtype=torch.bool, device=dev),
+                  ICPConfig(max_iterations=30))
+        runs[str(dev)] = (res, reg)
+    (a, ra), (b, rb) = runs["cpu"], runs[str(gpu)]
+    assert torch.equal(a.label, b.label.cpu())
+    assert int(a.n_clusters) == int(b.n_clusters) > 0
+    assert torch.equal(a.count, b.count.cpu())
+    for f in ("center3d", "radius3d", "radius2d"):
+        torch.testing.assert_close(getattr(b, f).cpu(), getattr(a, f),
+                                   rtol=2e-5, atol=1e-6)
+    torch.testing.assert_close(rb.r.cpu(), ra.r, rtol=0, atol=1e-5)
+    torch.testing.assert_close(rb.t.cpu(), ra.t, rtol=0, atol=1e-5)

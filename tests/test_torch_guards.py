@@ -1,0 +1,141 @@
+"""Guards of the PyTorch port: no JAX import, backend policy, launch counts,
+the argument checks of the kernel wrappers, and state conversion."""
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from vtkcloudpoint_tpu.config import ClusterConfig, EngineConfig, ICPConfig
+from vtkcloudpoint_tpu_torch import convert, device
+from vtkcloudpoint_tpu_torch.cluster import dbscan as td
+from vtkcloudpoint_tpu_torch.cluster.pipeline import ClusterResult, cluster_scan
+from vtkcloudpoint_tpu_torch.kernels import build
+from vtkcloudpoint_tpu_torch.kernels import dbscan as k_dbscan
+from vtkcloudpoint_tpu_torch.kernels import neighbor as k_nn
+from vtkcloudpoint_tpu_torch.kernels import shapes as k_shapes
+from vtkcloudpoint_tpu_torch.ops.geometry import cluster_shapes
+from vtkcloudpoint_tpu_torch.register.icp import icp, nn_correspond
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "vtkcloudpoint_tpu_torch"
+SLICE_MODULES = sorted(
+    "vtkcloudpoint_tpu_torch." + ".".join(p.relative_to(PACKAGE).with_suffix(
+        "").parts) for p in PACKAGE.rglob("*.py") if p.name != "__init__.py")
+
+
+def test_slice_modules_present():
+    for mod in ("device", "convert", "ops.metrics", "ops.segment",
+                "ops.geometry", "ops.se3", "cluster.blocks",
+                "cluster.dbscan", "cluster.fusion", "cluster.pipeline",
+                "register.icp", "kernels.build", "kernels.dbscan",
+                "kernels.shapes", "kernels.neighbor"):
+        assert f"vtkcloudpoint_tpu_torch.{mod}" in SLICE_MODULES
+    for src in build.SOURCES:
+        assert (build.CSRC / src).is_file()
+
+
+def test_port_imports_no_jax():
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in SLICE_MODULES)
+            + "bad = sorted(m for m in sys.modules if m == 'jax' or "
+              "m.startswith(('jax.', 'jaxlib')))\n"
+            + "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_resolve_backend():
+    cpu = torch.device("cpu")
+    assert device.resolve_backend("auto", cpu) == "torch"
+    assert device.resolve_backend("torch", cpu) == "torch"
+    assert device.resolve_backend("auto", "cuda") == "cuda"
+    with pytest.raises(ValueError, match="CUDA"):
+        device.resolve_backend("cuda", cpu)
+    for bad in ("pallas", "jnp", "gpu"):
+        with pytest.raises(ValueError, match="auto"):
+            device.resolve_backend(bad, cpu)
+
+
+def test_matmul_precision_is_full_float32():
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def _small_inputs():
+    rng = np.random.default_rng(0)
+    coords = torch.from_numpy(rng.uniform(0, 1, (2, 32, 2)).astype(
+        np.float32))
+    return coords, torch.ones(2, 32, dtype=torch.bool)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "pallas", "nope"])
+def test_entry_points_refuse_bad_backend_on_cpu(backend):
+    coords, valid = _small_inputs()
+    with pytest.raises(ValueError):
+        td.dbscan_blocks_dispatch(coords, valid, 0.1, 3, backend=backend)
+    with pytest.raises(ValueError):
+        cluster_shapes(coords, valid, torch.full((2,), 32), max_hull=8,
+                       backend=backend)
+    with pytest.raises(ValueError):
+        nn_correspond(torch.zeros(4, 3), torch.zeros(5, 3),
+                      torch.ones(5, dtype=torch.bool), backend=backend)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    coords, valid = _small_inputs()
+    with pytest.raises(ValueError, match="CUDA"):
+        k_dbscan.dbscan_blocks_cuda(coords, valid, 0.1, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_shapes.shapes_cuda(coords, valid, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_nn.nn_cuda(torch.zeros(4, 3), torch.zeros(5, 3),
+                     torch.ones(5, dtype=torch.bool))
+
+
+def test_cpu_run_launches_no_kernel():
+    mods = (k_dbscan, k_shapes, k_nn)
+    for m in mods:
+        m.launches = 0
+    rng = np.random.default_rng(1)
+    motor = torch.from_numpy(rng.uniform(0, 1, (400, 2)).astype(np.float32))
+    xyz = torch.cat([motor, torch.zeros(400, 1)], dim=1)
+    valid = torch.ones(400, dtype=torch.bool)
+    cfg = EngineConfig(cluster=ClusterConfig(eps=0.05, min_pts=4,
+                                             block_capacity=64))
+    res = cluster_scan(xyz, motor, valid, cfg, mode="balanced",
+                       max_blocks=8, max_clusters=64, cluster_capacity=64,
+                       max_hull=8, noise_capacity=256)
+    icp(res.center3d, res.count > 0, xyz[:50], valid[:50],
+        ICPConfig(max_iterations=5))
+    assert int(res.n_clusters) > 0
+    assert [m.launches for m in mods] == [0, 0, 0]
+
+
+def test_build_is_keyed_by_sources_and_flags():
+    path = build.library_path()
+    assert path.parent == ROOT / "build" / "kernels"
+    assert path.name.startswith("libvtkcp_kernels_")
+    assert path == build.library_path()
+    assert "--fmad=false" in build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert not any("fast_math" in f for f in build.NVCC_FLAGS)
+
+
+def test_convert_round_trip_keeps_dtypes():
+    tree = {"a": np.arange(5, dtype=np.int32),
+            "b": (np.ones(3, bool), np.float32([1.5, 2.5])),
+            "r": ClusterResult(*([np.zeros(2, np.float32)] * 10)),
+            "s": 3}
+    t = convert.from_numpy(tree)
+    assert t["a"].dtype == torch.int32 and t["b"][0].dtype == torch.bool
+    assert t["b"][1].dtype == torch.float32
+    assert isinstance(t["r"], ClusterResult) and t["s"] == 3
+    back = convert.to_numpy(t)
+    assert back["a"].dtype == np.int32 and back["b"][0].dtype == bool
+    np.testing.assert_array_equal(back["b"][1], tree["b"][1])
+    assert isinstance(back["r"], ClusterResult)

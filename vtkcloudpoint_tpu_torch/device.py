@@ -1,0 +1,38 @@
+"""Device, precision and kernel-backend policy of the port.
+
+TF32 is Hopper's form of the TPU's bf16 matmul truncation (docs/PARITY.md,
+"Numerical-exactness rules"): it keeps ~10 mantissa bits, enough to move a
+nearest neighbour or a centroid. The port runs every float32 matmul and
+convolution in full float32; importing this module sets that.
+"""
+from __future__ import annotations
+
+import torch
+
+torch.set_float32_matmul_precision("highest")
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+BACKENDS = ("auto", "cuda", "torch")
+
+
+def resolve_backend(backend: str, device) -> str:
+    """Kernel dispatch for tensors on ``device``.
+
+    "auto" -> "cuda" (the hand-written kernels) for a CUDA device, "torch"
+    (the plain PyTorch versions) for a CPU device. "cuda" on a CPU device
+    raises; "torch" runs the plain versions on any device. The shared
+    EngineConfig's JAX values ("pallas", "jnp") are not port backends.
+    """
+    dev = torch.device(device)
+    if backend == "auto":
+        return "cuda" if dev.type == "cuda" else "torch"
+    if backend == "cuda":
+        if dev.type != "cuda":
+            raise ValueError(
+                f"backend='cuda' needs CUDA tensors, got device {dev}")
+        return "cuda"
+    if backend == "torch":
+        return "torch"
+    raise ValueError(f"unknown backend {backend!r}; the port takes one of "
+                     f"{BACKENDS}")

@@ -1,0 +1,134 @@
+"""Build and load the hand-written Hopper kernels.
+
+All CUDA sources under ``csrc/`` compile with nvcc into ONE shared library
+with a plain C interface, loaded with ctypes (seconds to build; a source that
+includes PyTorch's headers takes minutes). The library is built at first use
+into ``build/kernels/`` at the repository root, named by a hash of the
+sources and flags, so a changed source rebuilds and an unchanged one loads
+at once. Nothing here runs at import time.
+
+Flags: ``sm_90a`` (Hopper); ``--fmad=false`` because a contracted a*b+c
+changes the float decisions the kernels share with their plain versions
+(d <= eps, d2 <= r2, argmins); no ``--use_fast_math`` because those
+decisions need IEEE division, sqrt and isinf/isnan.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("dbscan_block.cu", "shapes.cu", "nn.cu")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "--ptxas-options=-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures: every function returns its cudaError_t as int
+SIGNATURES = {
+    "vtkcp_dbscan_blocks": (_P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),
+    "vtkcp_dbscan_smem_bytes": (_I, _I),
+    "vtkcp_cluster_shapes": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P),
+    "vtkcp_nn_argmin": (_P, _P, _P, _I, _I, _P, _P, _P),
+}
+
+_lib = None
+build_info = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a machine with the CUDA toolkit")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libvtkcp_kernels_{_digest()}.so"
+
+
+def build() -> Path:
+    """Compile the library unless a build of these exact sources exists.
+    Records the build's seconds and nvcc's -Xptxas=-v report in
+    ``build_info``."""
+    path = library_path()
+    if path.exists():
+        build_info.setdefault("seconds", 0.0)
+        build_info.setdefault("cached", True)
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)            # atomic: no reader sees a partial .so
+    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    build_info.update(seconds=seconds, cached=False,
+                      ptxas=proc.stdout + proc.stderr)
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once per process."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, args in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+        lib.vtkcp_error_string.argtypes = [ctypes.c_int]
+        lib.vtkcp_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if err != 0:
+        msg = load().vtkcp_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def require_cuda(name: str, **tensors) -> None:
+    """Every tensor on one CUDA device and contiguous, else raise."""
+    devices = {t.device for t in tensors.values()}
+    for arg, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} must be a CUDA tensor, got "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+
+
+def stream_handle(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,129 @@
+"""Per-cluster segment reductions and padded per-cluster tables (port of
+vtkcloudpoint_tpu.ops.segment).
+
+Label 0 = noise, clusters 1..K; row c of every table is cluster id c. Ids
+outside [0, num_segments) and invalid points are dropped, as the JAX one-hot
+reductions drop them. The JAX package's TPU branches (one-hot matmuls,
+sort-and-window tables) are not ported: on a GPU scatter-adds and stable
+sorts are the natural tools.
+
+Counts accumulate in int64 (exact at any size, cf. segment.py:114-121 of the
+reference); float sums accumulate in float64 and round once to float32, so
+they do not depend on the order in which atomics land on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _segments(label, valid, num_segments: int):
+    """(in_range mask, segment id clamped into [0, num_segments))."""
+    ok = valid & (label >= 0) & (label < num_segments)
+    return ok, torch.where(ok, label, torch.zeros_like(label)).long()
+
+
+def _segment_sum(values, ok, seg, num_segments: int, dtype):
+    out = torch.zeros((num_segments,) + values.shape[1:], dtype=dtype,
+                      device=values.device)
+    return out.index_add_(0, seg[ok], values[ok].to(dtype))
+
+
+def cluster_counts(label, valid, num_segments: int):
+    """Point count per cluster id, i32[num_segments] (row 0 = noise)."""
+    ok, seg = _segments(label, valid, num_segments)
+    return torch.bincount(seg[ok], minlength=num_segments).to(torch.int32)
+
+
+def cluster_means(values, label, valid, num_segments: int, weights=None):
+    """Per-cluster mean of ``values`` [N, D] -> ([num_segments, D], weight
+    sum [num_segments]). Empty clusters return 0."""
+    w = valid.to(values.dtype)
+    if weights is not None:
+        w = w * weights.to(values.dtype)
+    ok, seg = _segments(label, valid, num_segments)
+    both = torch.cat([values * w[:, None], w[:, None]], dim=1)
+    sums = _segment_sum(both, ok, seg, num_segments,
+                        torch.float64).to(values.dtype)
+    cnt = sums[:, -1]
+    return sums[:, :-1] / torch.clamp_min(cnt, 1.0)[:, None], cnt
+
+
+def cluster_stats(xyz, motor, label, valid, num_segments: int, mult=None):
+    """All centroid tables in one pass.
+
+    Returns dict: count i32[K+1], weighted_count f[K+1], center3d f[K+1, 3],
+    center2d f[K+1, 2].
+    """
+    dt = xyz.dtype
+    w = valid.to(dt)
+    if mult is not None:
+        w = w * mult.to(dt)
+    ok, seg = _segments(label, valid, num_segments)
+    cols = torch.cat([xyz * w[:, None], motor * w[:, None], w[:, None]],
+                     dim=1)
+    sums = _segment_sum(cols, ok, seg, num_segments, torch.float64).to(dt)
+    wcnt = sums[:, 5]
+    inv = 1.0 / torch.clamp_min(wcnt, 1.0)
+    return {
+        "count": cluster_counts(label, valid, num_segments),
+        "weighted_count": wcnt,
+        "center3d": sums[:, :3] * inv[:, None],
+        "center2d": sums[:, 3:5] * inv[:, None],
+    }
+
+
+def _sorted_runs(label, valid, num_segments: int):
+    """Stable sort by cluster id (invalid -> num_segments): (order,
+    sorted ids, run start of each id [num_segments + 1], rank in run)."""
+    lab = torch.where(valid, label,
+                      torch.full_like(label, num_segments)).to(torch.int64)
+    sorted_lab, order = torch.sort(lab, stable=True)
+    ids = torch.arange(num_segments + 1, device=label.device)
+    first = torch.searchsorted(sorted_lab, ids)
+    pos = torch.arange(lab.shape[0], device=label.device)
+    rank = pos - first[sorted_lab.clamp(0, num_segments)]
+    return order, sorted_lab, first, rank
+
+
+def bucket_payload_by_cluster(label, valid, payload, num_segments: int,
+                              capacity: int):
+    """Per-cluster padded payload tables.
+
+    payload: f32 [N, P] or a tuple of f32 [N] columns. Returns (tables
+    [num_segments, capacity, P] with zeros in empty slots, slot_valid
+    [num_segments, capacity], counts i32[num_segments], overflow
+    i32[num_segments]). Slot order within a cluster is ascending point
+    index (the stable sort).
+    """
+    if isinstance(payload, (tuple, list)):
+        payload = torch.stack(tuple(payload), dim=-1)
+    order, sorted_lab, first, rank = _sorted_runs(label, valid,
+                                                  num_segments)
+    run = (first[1:] - first[:-1]).to(torch.int32)
+    keep = (rank < capacity) & (sorted_lab >= 0) & (
+        sorted_lab < num_segments)
+    flat = sorted_lab[keep] * capacity + rank[keep]
+    p = payload.shape[1]
+    tables = torch.zeros((num_segments * capacity, p), dtype=payload.dtype,
+                         device=payload.device)
+    tables[flat] = payload[order[keep]]
+    slot_valid = (torch.arange(capacity, device=label.device)[None, :]
+                  < torch.clamp_max(run, capacity)[:, None])
+    return (tables.reshape(num_segments, capacity, p), slot_valid, run,
+            torch.clamp_min(run - capacity, 0))
+
+
+def bucket_by_cluster(label, valid, num_segments: int, capacity: int):
+    """Per-cluster point-index table i32[num_segments, capacity] (-1 = empty
+    slot, ascending point index within a cluster) and overflow
+    i32[num_segments] (points beyond ``capacity``, dropped)."""
+    order, sorted_lab, _, rank = _sorted_runs(label, valid, num_segments)
+    keep = (rank < capacity) & (sorted_lab >= 0) & (
+        sorted_lab < num_segments)
+    table = torch.full((num_segments * capacity,), -1, dtype=torch.int32,
+                       device=label.device)
+    table[sorted_lab[keep] * capacity + rank[keep]] = order[keep].to(
+        torch.int32)
+    counts = cluster_counts(label, valid, num_segments)
+    return (table.reshape(num_segments, capacity),
+            torch.clamp_min(counts - capacity, 0))
