@@ -13,6 +13,7 @@ import torch
 from vtkcloudpoint_tpu.config import ClusterConfig, EngineConfig, ICPConfig
 from vtkcloudpoint_tpu_torch.cluster.dbscan import dbscan_blocks
 from vtkcloudpoint_tpu_torch.cluster.pipeline import cluster_scan
+from vtkcloudpoint_tpu_torch.engine import Engine
 from vtkcloudpoint_tpu_torch.kernels import dbscan as k_dbscan
 from vtkcloudpoint_tpu_torch.kernels import neighbor as k_nn
 from vtkcloudpoint_tpu_torch.kernels import shapes as k_shapes
@@ -179,3 +180,81 @@ def test_pipeline_on_card_equals_cpu(gpu):
                                    rtol=2e-5, atol=1e-6)
     torch.testing.assert_close(rb.r.cpu(), ra.r, rtol=0, atol=1e-5)
     torch.testing.assert_close(rb.t.cpu(), ra.t, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric,dims,eps", [
+    ("l1_motor", 2, 0.03), ("l2_xyz", 3, 0.05), ("l2_xy", 2, 0.04),
+    ("signed_sum_xy", 2, -0.3), ("l1_motor", 1, 0.002)])
+@pytest.mark.parametrize("n", [1, 1023, 5000])
+def test_radius_kernel_matches_plain(gpu, metric, dims, eps, n):
+    rng = np.random.default_rng(n + dims)
+    pts = _blobs(rng, 8, n // 10, n - 8 * (n // 10), 0.02, dims)
+    c = torch.from_numpy(pts.astype(np.float32)).to(gpu)
+    v = torch.from_numpy(rng.random(n) < 0.85).to(gpu)
+    k = k_nn.radius_count_cuda(c, v, eps, metric)
+    p = k_nn.radius_count_plain(c, v, eps, metric, chunk=512)
+    assert torch.equal(k, p)
+    assert bool((k[~v] == 0).all())
+
+
+def test_radius_kernel_refuses_bad_input(gpu):
+    c = torch.zeros(64, 2, device=gpu)
+    v = torch.ones(64, dtype=torch.bool, device=gpu)
+    with pytest.raises(ValueError):
+        k_nn.radius_count_cuda(c.double(), v, 0.1)
+    with pytest.raises(ValueError):
+        k_nn.radius_count_cuda(torch.zeros(64, 4, device=gpu), v, 0.1)
+    with pytest.raises(ValueError):
+        k_nn.radius_count_cuda(torch.zeros(2, 64, device=gpu).t(), v, 0.1)
+    with pytest.raises(ValueError):
+        k_nn.radius_count_cuda(c, v.float(), 0.1)
+    with pytest.raises(ValueError, match="unknown metric"):
+        k_nn.radius_count_cuda(c, v, 0.1, "cosine")
+
+
+def test_engine_on_card_equals_plain(gpu):
+    """The Engine workflow with the kernels and with the plain versions on
+    the card: labels, rejection, matches and every registration agree, and
+    K1-K3 launched."""
+    rng = np.random.default_rng(11)
+    centers = rng.uniform(5, 25, (30, 2))
+    motor = np.concatenate([c + 0.02 * rng.standard_normal((120, 2))
+                            for c in centers]
+                           + [rng.uniform(5, 25, (300, 2))])
+    dist = np.concatenate([np.repeat(rng.uniform(40, 45, 30), 120),
+                           rng.uniform(5, 120, 300)])
+    runs = {}
+    for backend in ("torch", "auto"):
+        for m in (k_dbscan, k_shapes, k_nn):
+            m.launches = 0
+        out = []
+        for icp_cfg in (ICPConfig(max_iterations=40),
+                        ICPConfig(max_iterations=40, num_starts=4),
+                        ICPConfig(max_iterations=40, ransac_iters=32)):
+            eng = Engine(EngineConfig(
+                cluster=ClusterConfig(eps=0.08, min_pts=8, pts_in_cell=128,
+                                      block_capacity=256),
+                icp=icp_cfg, backend=backend), device=gpu)
+            batch = eng.filter_by_distance(
+                eng.import_arrays(motor.astype(np.float32),
+                                  dist.astype(np.float32)), 10.0, 100.0)
+            res = eng.cluster(batch, mode="balanced", max_clusters=128,
+                              cluster_capacity=256)
+            batch, rejected = eng.reject_by_radius(batch, res, radius=0.02)
+            truth = res.center3d[res.count > 0][1:].cpu().numpy()
+            reg = eng.register_to_truth(
+                res, truth, generator=torch.Generator().manual_seed(0))
+            m = eng.match(res, truth, reg)
+            out.append((res, rejected, reg, m))
+        counts = [k_dbscan.launches, k_shapes.launches, k_nn.launches]
+        runs[backend] = (out, counts)
+    (plain, pc), (kern, kc) = runs["torch"], runs["auto"]
+    assert pc == [0, 0, 0] and all(c > 0 for c in kc)
+    for (ra, ja, ga, ma), (rb, jb, gb, mb) in zip(plain, kern):
+        assert torch.equal(ra.label, rb.label)
+        assert int(rb.n_clusters) > 20
+        assert torch.equal(ja, jb)
+        torch.testing.assert_close(gb.r, ga.r, rtol=0, atol=1e-5)
+        torch.testing.assert_close(gb.t, ga.t, rtol=0, atol=1e-5)
+        assert torch.equal(ma["match_idx"], mb["match_idx"])
+        assert int(ma["n_matched"]) == int(mb["n_matched"])

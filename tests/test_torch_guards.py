@@ -26,12 +26,26 @@ SLICE_MODULES = sorted(
         "").parts) for p in PACKAGE.rglob("*.py") if p.name != "__init__.py")
 
 
+@pytest.fixture
+def one_thread():
+    """Run on one torch thread: under parallel test workers, torch's thread
+    pool oversubscribes the cores and each of the workflow's many small ops
+    waits on its barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_slice_modules_present():
     for mod in ("device", "convert", "ops.metrics", "ops.segment",
                 "ops.geometry", "ops.se3", "cluster.blocks",
                 "cluster.dbscan", "cluster.fusion", "cluster.pipeline",
                 "register.icp", "kernels.build", "kernels.dbscan",
-                "kernels.shapes", "kernels.neighbor"):
+                "kernels.shapes", "kernels.neighbor", "data.convert",
+                "data.pointbatch", "io.ingest", "register.matching",
+                "register.coarse", "cluster.seeded",
+                "workflows.fixed_points", "engine"):
         assert f"vtkcloudpoint_tpu_torch.{mod}" in SLICE_MODULES
     for src in build.SOURCES:
         assert (build.CSRC / src).is_file()
@@ -95,6 +109,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         k_nn.nn_cuda(torch.zeros(4, 3), torch.zeros(5, 3),
                      torch.ones(5, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        k_nn.radius_count_cuda(coords[0], valid[0], 0.1)
 
 
 def test_cpu_run_launches_no_kernel():
@@ -116,6 +132,41 @@ def test_cpu_run_launches_no_kernel():
     assert [m.launches for m in mods] == [0, 0, 0]
 
 
+def test_cpu_engine_session_launches_no_kernel(one_thread):
+    """import -> filter -> cluster -> reject -> register (single start,
+    multi-start, RANSAC) -> match -> radius count on CPU tensors: every
+    kernel's counter stays 0."""
+    from vtkcloudpoint_tpu_torch.engine import Engine
+
+    counters = [(k_dbscan, "launches"), (k_shapes, "launches"),
+                (k_nn, "launches"), (k_nn, "radius_launches")]
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    rng = np.random.default_rng(2)
+    centers = rng.uniform(5, 25, (6, 2))
+    motor = np.concatenate([c + 0.02 * rng.standard_normal((40, 2))
+                            for c in centers]).astype(np.float32)
+    dist = rng.uniform(40, 45, len(motor)).astype(np.float32)
+    cfg = EngineConfig(cluster=ClusterConfig(eps=0.08, min_pts=6,
+                                             pts_in_cell=64))
+    eng = Engine(cfg, device="cpu")
+    batch = eng.filter_by_distance(eng.import_arrays(motor, dist), 10.0,
+                                   100.0)
+    res = eng.cluster(batch, mode="balanced", max_clusters=64,
+                      cluster_capacity=64, max_blocks=8, max_hull=16)
+    batch, _ = eng.reject_by_radius(batch, res, radius=1.0)
+    truth = res.center3d[res.count > 0]
+    for icfg in (ICPConfig(max_iterations=10),
+                 ICPConfig(max_iterations=10, num_starts=2),
+                 ICPConfig(max_iterations=10, ransac_iters=4)):
+        reg = Engine(cfg.replace(icp=icfg), device="cpu").register_to_truth(
+            res, truth)
+        eng.match(res, truth, reg)
+    k_nn.radius_count(batch.motor, batch.valid, 0.08)
+    assert int(res.n_clusters) > 0
+    assert [getattr(mod, name) for mod, name in counters] == [0, 0, 0, 0]
+
+
 def test_build_is_keyed_by_sources_and_flags():
     path = build.library_path()
     assert path.parent == ROOT / "build" / "kernels"
@@ -123,7 +174,10 @@ def test_build_is_keyed_by_sources_and_flags():
     assert path == build.library_path()
     assert "--fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in build.LINK_FLAGS
     assert not any("fast_math" in f for f in build.NVCC_FLAGS)
+    assert "radius.cu" in build.SOURCES
+    assert "vtkcp_radius_count" in build.SIGNATURES
 
 
 def test_convert_round_trip_keeps_dtypes():

@@ -1,0 +1,88 @@
+"""Motor-angle <-> Cartesian coordinate conversion (port of
+vtkcloudpoint_tpu.data.convert).
+
+Forward conversion, reference FrmMain.cs:1025-1062:
+
+    pitch   = -2 * (motor_x - x_angle) * pi / 180
+    azimuth =  2 * (motor_y - y_angle) * pi / 180
+    tmpx = D * cos(pitch) * sin(azimuth)
+    tmpy = D * sin(pitch) * cos(azimuth)
+    z    = D * cos(pitch)
+    X, Y picked from {tmpy, tmpx, -tmpy, -tmpx} via the xdir/ydir switches.
+
+The operations run in the order of the JAX functions, in the tensors' dtype
+(float32 in the Engine); torch's and XLA's trigonometric functions may
+differ by an ulp.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from vtkcloudpoint_tpu.config import ImportConfig
+
+_DIR_SIGN = {1: 1.0, 2: 1.0, 3: -1.0, 4: -1.0}
+_DIR_PICKS_TMPY = {1: True, 2: False, 3: True, 4: False}
+
+
+def motor_to_xyz(motor, rng, cfg: ImportConfig = ImportConfig()):
+    """Spherical (motor_x, motor_y, Distance) -> Cartesian xyz [N, 3]."""
+    mx = motor[..., 0]
+    my = motor[..., 1]
+    pitch = (-2.0) * (mx - cfg.x_angle) / 180.0 * math.pi
+    az = 2.0 * (my - cfg.y_angle) / 180.0 * math.pi
+    tmpx = rng * torch.cos(pitch) * torch.sin(az)
+    tmpy = rng * torch.sin(pitch) * torch.cos(az)
+    z = rng * torch.cos(pitch)
+
+    def pick(d):
+        base = tmpy if _DIR_PICKS_TMPY[d] else tmpx
+        return _DIR_SIGN[d] * base
+
+    return torch.stack([pick(cfg.xdir), pick(cfg.ydir), z], dim=-1)
+
+
+def xyz_to_motor(xyz, cfg: ImportConfig = ImportConfig()):
+    """Cartesian -> (motor [N, 2], distance [N]), Tools.cs:335-339.
+
+    Kept as the reference has it: this export-path formula solves the model
+    y = D*cos(pitch)*sin(az), with pitch and azimuth swapped against the
+    forward map, so only d and motor_x are consistent with motor_to_xyz.
+    xyz_to_motor_exact is the true inverse.
+    """
+    x = xyz[..., 0]
+    y = xyz[..., 1]
+    z = xyz[..., 2]
+    phi = torch.arcsin(y / z)
+    xita = torch.arctan(x / (z * torch.cos(phi)))
+    motor_x = xita * (-90.0) / math.pi + cfg.x_angle
+    motor_y = phi * 90.0 / math.pi + cfg.y_angle
+    d = z / torch.cos(xita)
+    return torch.stack([motor_x, motor_y], dim=-1), d
+
+
+def xyz_to_motor_exact(xyz, cfg: ImportConfig = ImportConfig()):
+    """True inverse of motor_to_xyz for the canonical xdir=2/ydir=1 rig:
+    A = asin(x/z); P = atan(y / (z cos A)); D = z / cos P."""
+    x = xyz[..., 0]
+    y = xyz[..., 1]
+    z = xyz[..., 2]
+    az = torch.arcsin(torch.clamp(x / z, -1.0, 1.0))
+    pitch = torch.arctan(y / (z * torch.cos(az)))
+    d = z / torch.cos(pitch)
+    motor_x = cfg.x_angle - pitch * 90.0 / math.pi
+    motor_y = cfg.y_angle + az * 90.0 / math.pi
+    return torch.stack([motor_x, motor_y], dim=-1), d
+
+
+def range_gate(rng, cfg: ImportConfig = ImportConfig()):
+    """Validity mask of the import range gate (FrmMain.cs:1011): drop
+    Distance == 0 and Distance > 1000."""
+    return (rng != cfg.range_min_exclusive) & (rng <= cfg.range_max)
+
+
+def distance_window(rng, dis_min: float, dis_max: float):
+    """Distance-window mask, True = keep: the open interval
+    (dis_min, dis_max) (Tools.cs:416-431)."""
+    return (rng < dis_max) & (rng > dis_min)

@@ -2,10 +2,12 @@
 
 All CUDA sources under ``csrc/`` compile with nvcc into ONE shared library
 with a plain C interface, loaded with ctypes (seconds to build; a source that
-includes PyTorch's headers takes minutes). The library is built at first use
-into ``build/kernels/`` at the repository root, named by a hash of the
-sources and flags, so a changed source rebuilds and an unchanged one loads
-at once. Nothing here runs at import time.
+includes PyTorch's headers takes minutes). Each source compiles to an object
+in its own nvcc process, all started together, and one more nvcc links
+them. The library is built at first use into ``build/kernels/`` at the
+repository root, named by a hash of the sources and flags, so a changed
+source rebuilds and an unchanged one loads at once. Nothing here runs at
+import time.
 
 Flags: ``sm_90a`` (Hopper); ``--fmad=false`` because a contracted a*b+c
 changes the float decisions the kernels share with their plain versions
@@ -23,11 +25,12 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("dbscan_block.cu", "shapes.cu", "nn.cu")
+SOURCES = ("dbscan_block.cu", "shapes.cu", "nn.cu", "radius.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
               "--ptxas-options=-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +41,7 @@ SIGNATURES = {
     "vtkcp_dbscan_smem_bytes": (_I, _I),
     "vtkcp_cluster_shapes": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P),
     "vtkcp_nn_argmin": (_P, _P, _P, _I, _I, _P, _P, _P),
+    "vtkcp_radius_count": (_P, _P, _I, _I, _I, _F, _P, _P),
 }
 
 _lib = None
@@ -56,7 +60,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -77,19 +81,33 @@ def build() -> Path:
         build_info.setdefault("cached", True)
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(CSRC / src)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    report = "".join(logs)
+    for src, p, log in zip(SOURCES, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):\n"
+                               f"{log}")
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stdout}\n{link.stderr}")
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, path)            # atomic: no reader sees a partial .so
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    build_info.update(seconds=seconds, cached=False,
-                      ptxas=proc.stdout + proc.stderr)
+    path.with_suffix(".log").write_text(report)
+    build_info.update(seconds=seconds, cached=False, ptxas=report)
     return path
 
 

@@ -1,21 +1,35 @@
-"""K3: nearest-neighbour argmin, hand-written for Hopper (csrc/nn.cu).
+"""Neighbour-search kernels, hand-written for Hopper.
 
-Replaces the Pallas kernel nn_pallas (vtkcloudpoint_tpu/ops/pallas/
-neighbor.py:183). ``nn_plain`` beside it is the plain PyTorch version with
-the same semantics: squared distance from direct differences summed in
-coordinate order, invalid references at BIG, ties to the lowest index.
+K3, nearest-neighbour argmin (csrc/nn.cu), replaces the Pallas kernel
+nn_pallas (vtkcloudpoint_tpu/ops/pallas/neighbor.py:183). ``nn_plain``
+beside it is the plain PyTorch version with the same semantics: squared
+distance from direct differences summed in coordinate order, invalid
+references at BIG, ties to the lowest index.
+
+K4, radius neighbour count (csrc/radius.cu), replaces radius_count_pallas
+(neighbor.py:86). ``radius_count_plain`` is its plain PyTorch version, the
+counterpart of radius_count_jnp; ``radius_count`` dispatches between them.
+
+Each kernel keeps its own launch counter (``launches``, ``radius_launches``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..device import resolve_backend
 from . import build
 
 SOURCE = "vtkcloudpoint_tpu_torch/kernels/csrc/nn.cu"
 REPLACES = "vtkcloudpoint_tpu/ops/pallas/neighbor.py:183"
+RADIUS_SOURCE = "vtkcloudpoint_tpu_torch/kernels/csrc/radius.cu"
+RADIUS_REPLACES = "vtkcloudpoint_tpu/ops/pallas/neighbor.py:86"
 BIG = 1e30
+RADIUS_METRICS = {"l1_motor": 0, "signed_sum_xy": 1, "l2_xyz": 2,
+                  "l2_xy": 2}
 
 launches = 0
+radius_launches = 0
 
 
 def nn_plain(query, ref, ref_valid, chunk: int = 2048):
@@ -68,3 +82,77 @@ def nn_cuda(query, ref, ref_valid):
     build.check(err, "vtkcp_nn_argmin")
     launches += 1
     return idx, d2
+
+
+def _radius_threshold(eps: float, metric: str) -> float:
+    """The float32 threshold a K4 decision compares against: eps, or for
+    L2 eps * eps squared in double and rounded once (what the Pallas kernel
+    compares with, neighbor.py:76). An unknown metric raises."""
+    if metric not in RADIUS_METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    return float(np.float32(eps * eps if RADIUS_METRICS[metric] == 2
+                            else eps))
+
+
+def radius_count_plain(coords, valid, eps: float, metric: str = "l1_motor",
+                       chunk: int = 2048, rows=None):
+    """Count of valid points within eps of every point, self included; 0 on
+    invalid rows. Query-tiled: i32[N], or i32[len(rows)] for the query
+    rows ``rows`` (an index tensor) alone."""
+    thr = _radius_threshold(eps, metric)
+    code = RADIUS_METRICS[metric]
+    queries, qvalid = ((coords, valid) if rows is None
+                       else (coords[rows], valid[rows]))
+    out = []
+    for s in range(0, queries.shape[0], max(chunk, 1)):
+        q = queries[s:s + chunk]
+        d = None
+        for k in range(coords.shape[1]):
+            e = q[:, None, k] - coords[None, :, k]
+            term = e.abs() if code == 0 else (e if code == 1 else e * e)
+            d = term if d is None else d + term
+        ok = (d <= thr) & valid[None, :]
+        cnt = ok.sum(dim=1, dtype=torch.int32)
+        out.append(torch.where(qvalid[s:s + chunk], cnt, 0))
+    if not out:
+        return torch.empty(0, dtype=torch.int32, device=coords.device)
+    return torch.cat(out)
+
+
+def radius_count_cuda(coords, valid, eps: float, metric: str = "l1_motor"):
+    """Launch K4 on CUDA tensors coords f32 [N, D] (D <= 3) and valid bool
+    [N]: count i32[N]. Launches on the current stream and does not
+    synchronise."""
+    global radius_launches
+    build.require_cuda("radius_count_cuda", coords=coords, valid=valid)
+    if coords.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise ValueError("radius_count_cuda: coords must be float32 and "
+                         "valid bool")
+    if coords.dim() != 2 or not 1 <= coords.shape[1] <= 3:
+        raise ValueError(f"radius_count_cuda: coords must be [N, D] with "
+                         f"D <= 3, got {tuple(coords.shape)}")
+    n, d = coords.shape
+    if tuple(valid.shape) != (n,):
+        raise ValueError("radius_count_cuda: valid must be [N]")
+    if n >= 2**31:
+        raise ValueError("radius_count_cuda: N must fit in int32")
+    thr = _radius_threshold(eps, metric)
+    lib = build.load()
+    out = torch.empty(n, dtype=torch.int32, device=coords.device)
+    with torch.cuda.device(coords.device):
+        err = lib.vtkcp_radius_count(
+            coords.data_ptr(), valid.data_ptr(), n, d,
+            RADIUS_METRICS[metric], thr, out.data_ptr(),
+            build.stream_handle(coords.device))
+    build.check(err, "vtkcp_radius_count")
+    radius_launches += 1
+    return out
+
+
+def radius_count(coords, valid, eps: float, metric: str = "l1_motor",
+                 chunk: int = 2048, backend: str = "auto"):
+    """Radius neighbour count: CUDA tensors go to K4, CPU tensors to the
+    plain version (the rule of register.icp.nn_correspond)."""
+    if resolve_backend(backend, coords.device) == "cuda":
+        return radius_count_cuda(coords, valid, eps, metric)
+    return radius_count_plain(coords, valid, eps, metric, chunk)

@@ -94,3 +94,11 @@ def rotz(theta):
     z, o = torch.zeros_like(c), torch.ones_like(c)
     return torch.stack([torch.stack([c, -s, z]), torch.stack([s, c, z]),
                         torch.stack([z, z, o])])
+
+
+def random_rotation(generator, dtype=torch.float32):
+    """Uniform random rotation from a random unit quaternion, drawn from
+    ``generator`` on the generator's device."""
+    q = torch.randn(4, generator=generator, dtype=dtype,
+                    device=generator.device)
+    return quat_to_rot(q / torch.linalg.norm(q))

@@ -1,16 +1,26 @@
 """Iterative Closest Point registration (port of
-vtkcloudpoint_tpu.register.icp: nn_correspond and icp).
+vtkcloudpoint_tpu.register.icp: nn_correspond, icp, ransac_init,
+icp_ransac, icp_multistart).
 
 The JAX while_loop becomes a Python loop; reading ``converged`` syncs with
 the device once per iteration. Correspondences come from the nearest-
 neighbour kernel K3 on CUDA tensors (kernels/neighbor.py) and from its plain
 version on CPU tensors.
+
+RANSAC and multi-start draw their randomness from an explicit
+``torch.Generator`` (seeded 0 when none is given), never from the global
+RNG. jax.random and torch give different numbers for one seed, so each is
+split into a sampling step and a deterministic step that takes the samples
+(``ransac_sample`` / ``ransac_score``, ``multistart_rotations`` /
+``icp_best_of``); the tests feed the JAX package's own samples to the
+deterministic step.
 """
 from __future__ import annotations
 
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from vtkcloudpoint_tpu.config import ICPConfig
@@ -82,3 +92,118 @@ def icp(source, source_valid, target, target_valid,
     return ICPResult(r=r, t=t, error=d,
                      iterations=torch.tensor(it, dtype=torch.int32),
                      converged=torch.tensor(converged))
+
+
+def _generator(generator):
+    return torch.Generator().manual_seed(0) if generator is None \
+        else generator
+
+
+def ransac_sample(source_valid, target_valid, iters: int, generator=None):
+    """Index pairs of the RANSAC hypotheses: (si [iters, 2], tj [iters, 2])
+    int64, each pair drawn WITH replacement (jax.random.choice's default)
+    with probability proportional to validity. Drawn on the generator's
+    device, returned on source_valid's."""
+    g = _generator(generator)
+
+    def draw(valid):
+        w = valid.to(device=g.device, dtype=torch.float32)
+        w = (w / w.sum()).expand(iters, -1)
+        return torch.multinomial(w, 2, replacement=True, generator=g).to(
+            source_valid.device)
+
+    return draw(source_valid), draw(target_valid)
+
+
+def ransac_score(source, source_valid, target, target_valid,
+                 inlier_threshold: float, si, tj, chunk: int = 2048,
+                 backend: str = "auto"):
+    """Score every hypothesis (source pair si[h] -> target pair tj[h]):
+    the z-rotation + translation mapping one pair onto the other, scored by
+    the valid sources whose nearest target lies within inlier_threshold;
+    pairs whose lengths differ by 2 * inlier_threshold or more score 0.
+    All hypotheses' moved sources form ONE [iters * N, 3] nearest-neighbour
+    query. Returns (rs [iters, 3, 3], ts [iters, 3], scores [iters])."""
+    s1, s2 = source[si[:, 0]], source[si[:, 1]]
+    t1, t2 = target[tj[:, 0]], target[tj[:, 1]]
+    ang = (torch.atan2(t2[:, 1] - t1[:, 1], t2[:, 0] - t1[:, 0])
+           - torch.atan2(s2[:, 1] - s1[:, 1], s2[:, 0] - s1[:, 0]))
+    c, s = torch.cos(ang), torch.sin(ang)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    rs = torch.stack([torch.stack([c, -s, z], -1), torch.stack([s, c, z], -1),
+                      torch.stack([z, z, o], -1)], -2)
+    ts = t1 - (rs @ s1[:, :, None])[:, :, 0]
+    len_ok = (torch.linalg.norm(s2 - s1, dim=-1)
+              - torch.linalg.norm(t2 - t1, dim=-1)).abs() \
+        < 2.0 * inlier_threshold
+    moved = source[None] @ rs.transpose(1, 2) + ts[:, None, :]
+    _, d2 = nn_correspond(moved.reshape(-1, 3).contiguous(), target,
+                          target_valid, chunk, backend)
+    thr2 = float(np.float32(inlier_threshold ** 2))
+    hit = source_valid[None, :] & (d2.reshape(si.shape[0], -1) < thr2)
+    inliers = hit.to(source.dtype).sum(dim=1)
+    return rs, ts, torch.where(len_ok, inliers, 0.0)
+
+
+def ransac_init(source, source_valid, target, target_valid,
+                inlier_threshold: float, iters: int = 64, generator=None,
+                chunk: int = 2048, backend: str = "auto"):
+    """Congruent-pair RANSAC for a rigid, 2D-dominant initial pose. Returns
+    (r0, t0, best_inliers), the first best hypothesis on ties. Refine with
+    icp(r0=..., t0=...)."""
+    si, tj = ransac_sample(source_valid, target_valid, iters, generator)
+    rs, ts, scores = ransac_score(source, source_valid, target,
+                                  target_valid, inlier_threshold, si, tj,
+                                  chunk, backend)
+    best = torch.argmax(scores)
+    return rs[best], ts[best], scores[best]
+
+
+def icp_ransac(source, source_valid, target, target_valid,
+               cfg: ICPConfig = ICPConfig(), generator=None,
+               chunk: int = 2048, backend: str = "auto"):
+    """RANSAC init (cfg.ransac_iters hypotheses) + ICP refine."""
+    r0, t0, _ = ransac_init(source, source_valid, target, target_valid,
+                            cfg.ransac_inlier_threshold,
+                            max(int(cfg.ransac_iters), 1), generator, chunk,
+                            backend)
+    return icp(source, source_valid, target, target_valid, cfg, r0=r0,
+               t0=t0, chunk=chunk, backend=backend)
+
+
+def multistart_rotations(k: int, generator=None, dtype=torch.float32,
+                         device="cpu"):
+    """The k initial rotations of icp_multistart, [k, 3, 3]: (k + 1) // 2
+    uniform z-spins (deterministic), then random rotations from the
+    generator."""
+    g = _generator(generator)
+    n_z = (k + 1) // 2
+    thetas = torch.arange(n_z, dtype=dtype) * (2.0 * math.pi / max(n_z, 1))
+    rots = [se3.rotz(th) for th in thetas]
+    rots += [se3.random_rotation(g, dtype) for _ in range(k - n_z)]
+    return torch.stack([r.to(device=device, dtype=dtype) for r in rots])
+
+
+def icp_best_of(source, source_valid, target, target_valid,
+                cfg: ICPConfig, r0s, chunk: int = 2048,
+                backend: str = "auto"):
+    """ICP from each initial rotation r0s [K, 3, 3]; the run of lowest final
+    error, the first on ties."""
+    runs = [icp(source, source_valid, target, target_valid, cfg, r0=r0,
+                chunk=chunk, backend=backend) for r0 in r0s]
+    best = int(torch.argmin(torch.stack([r.error for r in runs])))
+    return runs[best]
+
+
+def icp_multistart(source, source_valid, target, target_valid,
+                   cfg: ICPConfig = ICPConfig(), generator=None,
+                   chunk: int = 2048, backend: str = "auto"):
+    """Multi-start ICP: cfg.num_starts initial rotations (uniform z-spins,
+    then random ones), keeping the lowest-error run."""
+    k = max(int(cfg.num_starts), 1)
+    if k == 1:
+        return icp(source, source_valid, target, target_valid, cfg,
+                   chunk=chunk, backend=backend)
+    r0s = multistart_rotations(k, generator, source.dtype, source.device)
+    return icp_best_of(source, source_valid, target, target_valid, cfg, r0s,
+                       chunk, backend)
