@@ -26,7 +26,21 @@
    the two runs equal and the single-start run to the JAX package's float32
    CPU result (tools/jax_reference_engine.py), and holds K2 at h = 64
    against its plain version at the session's shapes;
-8. prints a JSON line describing every kernel, and last
+8. runs the tier-3 job of benchmarks/tier3_scale.py at full width (5M
+   points, 4,883 blocks, the 65,536-slot noise re-cluster on the grid
+   engine, 24,576 shape tables, ICP at N = 12,288, M = 5,120) through the
+   kernels and with the plain versions on the card, holds K1-K3 against
+   their plain versions at its shapes, checks the labels, overflow counters
+   and ICP against the JAX package's float32 CPU result
+   (tools/jax_reference_tier3.py), and times the noise stage on the grid
+   engine against dense_chunked;
+9. runs Engine.cluster_grid on the Engine session at cell_cap 2048 (exact
+   global DBSCAN), grid ICP against brute-force ICP through K3 at 100,000
+   points and, in float64, against the JAX package's float64 run, the halo
+   union on the tier-2 cloud, and the shape variants
+   (quickhull, Elzinga-Hearn MEC, candidate pruning) at K2's tier-2 shapes,
+   each checked against the JAX CPU constants or K2;
+10. prints a JSON line describing every kernel, and last
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line
@@ -71,6 +85,62 @@ JAX_ENGINE = dict(
     icp_t=(0.0004225076118018478, -0.0007517647463828325, 0.0),
 )
 
+# The JAX package's answers for the tier-3 phases in float32 on the CPU,
+# from `JAX_PLATFORMS=cpu python3 tools/jax_reference_tier3.py` (jax 0.9.0).
+# (a) the 5M-point tier-3 job; ICP R, t and iterations of its Pallas NN
+# (direct differences, the port's semantics), the error of its jnp path.
+JAX_TIER3 = dict(
+    n_clusters=10460,
+    label_sha256=(
+        "d9f3550bb19924834e533e3635532e2da481a2f665f866504d5bf423c8a89f0b"),
+    noise_overflow=0, gather_overflow=0, bucket_overflow=0,
+    icp_iterations=5,
+    icp_r=((1.0, -3.813039802480489e-05, -1.324123810597655e-09),
+           (3.813039802480489e-05, 1.0, -1.3593067643702383e-11),
+           (1.3241243657091673e-09, 1.3542579384295816e-11, 1.0)),
+    icp_t=(3.253547038184479e-05, -2.449486828481895e-06,
+           -5.556017072198133e-14),
+    icp_error_jnp=0.14654541015625,
+)
+# n_clusters of the TPU v5e record TIER3_r05.json (dense_chunked noise
+# engine): information only
+TPU_RECORD_TIER3_N_CLUSTERS = 10463
+# (b) Engine.cluster_grid on the Engine session, cell_cap 2048
+JAX_GRID_ENGINE = dict(
+    n_clusters=419,
+    label_sha256=(
+        "2110ab6888bfebdd745e8c35f8755b22405b66871f5602b761f5a24fd39c9124"),
+    overflow=0, n_core=496888,
+    count_sha256=(
+        "66f3aead879391ba619aeef6b579a241b84136495fb9d2dba5884e7bf8a9b108"),
+    n_nonempty=419, n_filtered=499243)
+# (c) icp_grid on tools/tier3_inputs.nn_inputs (m = 100,000)
+JAX_ICP_GRID = dict(
+    icp_r=((0.999817430973053, -0.01922808401286602,
+            -0.00034359964774921536),
+           (0.019228260964155197, 0.999817430973053, 0.000514439248945564),
+           (0.0003336444206070155, -0.0005209511728025973,
+            1.0000026226043701)),
+    icp_t=(-1.1933776140213013, 1.3152999877929688, 0.10061226785182953),
+    icp_iterations=20, overflow=0, icp_error=10339.123046875)
+# (c) the same in float64, from `JAX_PLATFORMS=cpu python3
+# tools/icp_grid_witness.py` (k = 20): the port on the CPU gives it to
+# 1.2e-14 in t and 2.2e-16 in R after every k of 1, 2, 3, 5, 10, 20. In
+# float32 JAX's own t is 4.3e-5 from it, the port's on the CPU 5.0e-5.
+JAX_ICP_GRID_F64 = dict(
+    icp_r=((0.9998150650706226, -0.01922805731530149,
+            -0.00034273853720434566),
+           (0.019228232296739558, 0.9998149879313614, 0.0005147723319148347),
+           (0.00033277705453618566, -0.000521267388740397,
+            0.999999808769852)),
+    icp_t=(-1.1933350189008776, 1.3153428529677182, 0.10064539043245091),
+    icp_iterations=20)
+# (d) cluster_scan(halo_merge=True, halo_cap=64) on the tier-2 cloud
+JAX_HALO = dict(
+    n_clusters=910,
+    label_sha256=(
+        "b8cdf8538fde2bca2c85e25e1223debbeb8d90fbed38489a56ff5afd9ead9d54"))
+
 N_POINTS = 500_000
 BLOCK_CAP = 1024
 MAX_BLOCKS = 489
@@ -85,8 +155,22 @@ SHAPES_RTOL = 2e-5
 SHAPES_ATOL = 1e-6
 STAGES = ("partition_gather", "dbscan", "fusion", "stats", "bucket",
           "shapes_x2", "icp")
+# the tier-2 job's settings in the form of tools/tier3_inputs.TIER3
+TIER2 = dict(n_points=N_POINTS, block_cap=BLOCK_CAP, max_blocks=MAX_BLOCKS,
+             eps=EPS, min_pts=MIN_PTS, metric="l1_motor", noise_cap=NOISE_CAP,
+             noise_cell_cap=32, max_clusters=MAX_CLUSTERS,
+             cluster_cap=CLUSTER_CAP, max_hull=MAX_HULL, shape_chunk_k=256,
+             icp_iterations=ICP_ITERS, icp_chunk=1024)
 ENGINE_STEPS = ("import", "filter", "cluster", "reject", "register",
                 "register_multistart", "register_ransac", "match", "export")
+ICP_GRID_TOL = 2e-5             # grid ICP against brute-force ICP
+JAX_ICP_GRID_TOL = 1e-5         # grid ICP's R against the JAX CPU result
+F64_ICP_GRID_TOL = 1e-9         # float64 grid ICP against JAX's float64
+# float32 grid ICP's t against JAX's float64 answer: float32 sums of
+# 100,000 terms in another order than XLA's, over 20 iterations. JAX's own
+# float32 t lies 4.3e-5 from that answer (PERF.md, section 6)
+F32_ICP_GRID_T_TOL = 2e-4
+PRUNE_CAP = 192                 # phase (e): candidate-pruning slots
 ENGINE_MAX_HULL = 64            # Engine.cluster leaves cluster_scan's default
 RADIUS_SESSION_ROWS = 65_536
 RADIUS_L2_EPS = 0.002           # metres; median count ~ a few hundred
@@ -124,6 +208,115 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def sha256_of(label) -> str:
+    """SHA-256 of a label tensor as int32 bytes (the JAX tools' digest)."""
+    return hashlib.sha256(
+        label.cpu().numpy().astype(np.int32).tobytes()).hexdigest()
+
+
+def kernel_modules():
+    """K1-K3's wrapper modules by kernels-line name; each keeps the count
+    ``launches`` of its kernel's launches."""
+    from vtkcloudpoint_tpu_torch.kernels import dbscan as k_dbscan
+    from vtkcloudpoint_tpu_torch.kernels import neighbor as k_nn
+    from vtkcloudpoint_tpu_torch.kernels import shapes as k_shapes
+
+    return {"dbscan_block": k_dbscan, "cluster_shapes": k_shapes,
+            "nn_argmin": k_nn}
+
+
+def reset_launches():
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def read_launches():
+    import torch
+
+    torch.cuda.synchronize()
+    return {name: mod.launches for name, mod in kernel_modules().items()}
+
+
+def hold_k1(bc, bv, eps, min_pts, where):
+    """K1 against dbscan_blocks on the same blocks (bit-equal), both timed.
+    Returns the kernels-line fields."""
+    import torch
+
+    from vtkcloudpoint_tpu_torch.cluster.dbscan import dbscan_blocks
+    from vtkcloudpoint_tpu_torch.kernels import dbscan as k_dbscan
+
+    kout = k_dbscan.dbscan_blocks_cuda(bc, bv, eps, min_pts)
+    pout = dbscan_blocks(bc, bv, eps, min_pts)
+    for key in ("label", "n_clusters", "core"):
+        require(torch.equal(kout[key], pout[key]),
+                f"K1 {key} differs from the plain version ({where})")
+    return {"max_abs_err": float((kout["label"] - pout["label"]).abs().max()),
+            "ms": cuda_ms(lambda: k_dbscan.dbscan_blocks_cuda(
+                bc, bv, eps, min_pts), 20),
+            "plain_ms": cuda_ms(lambda: dbscan_blocks(bc, bv, eps, min_pts),
+                                3),
+            "shape": "B=%d cap=%d D=%d" % tuple(bc.shape)}
+
+
+def hold_k2(points, valid, max_hull, where):
+    """K2 against shapes_plain on the same tables (rtol SHAPES_RTOL), both
+    timed. Returns the kernels-line fields."""
+    from vtkcloudpoint_tpu_torch.kernels import shapes as k_shapes
+
+    kout = k_shapes.shapes_cuda(points, valid, max_hull)
+    pout = k_shapes.shapes_plain(points, valid, max_hull)
+    err = 0.0
+    for name, a, b in zip(("center_x", "center_y", "radius", "len_long",
+                           "len_short", "area"), kout, pout):
+        bad = (a - b).abs() > SHAPES_ATOL + SHAPES_RTOL * b.abs()
+        require(not bool(bad.any()),
+                f"K2 {name} differs from the plain version ({where}) at "
+                f"clusters {bad.nonzero()[:5].flatten().tolist()}")
+        err = max(err, float((a - b).abs().max()))
+    return {"max_abs_err": err,
+            "ms": cuda_ms(lambda: k_shapes.shapes_cuda(points, valid,
+                                                       max_hull), 20),
+            "plain_ms": cuda_ms(lambda: k_shapes.shapes_plain(
+                points, valid, max_hull), 3),
+            "shape": "K=%d cap=%d h=%d" % (*points.shape[:2], max_hull)}
+
+
+def hold_k3(query, ref, ref_valid, where):
+    """K3 against nn_plain on the same points (bit-equal), both timed.
+    Returns the kernels-line fields."""
+    import torch
+
+    from vtkcloudpoint_tpu_torch.kernels import neighbor as k_nn
+
+    args = (query, ref, ref_valid)
+    kidx, kd2 = k_nn.nn_cuda(*args)
+    pidx, pd2 = k_nn.nn_plain(*args, 1024)
+    require(torch.equal(kidx, pidx) and torch.equal(kd2, pd2),
+            f"K3 differs from the plain version ({where})")
+    return {"max_abs_err": float((kd2 - pd2).abs().max()),
+            "ms": cuda_ms(lambda: k_nn.nn_cuda(*args), 20),
+            "plain_ms": cuda_ms(lambda: k_nn.nn_plain(*args, 1024), 3),
+            "shape": "N=%d M=%d" % (query.shape[0], ref.shape[0])}
+
+
+def first_icp_query(stats, truth):
+    """ICP's first correspondence query: the cluster centres moved by the
+    offset of the truth's centroid from theirs."""
+    w = (stats["count"] > 0).float()
+    centers = stats["center3d"]
+    return (centers + truth.mean(dim=0) - (centers * w[:, None]).sum(dim=0)
+            / w.sum().clamp_min(1.0)).contiguous()
+
+
+def add_fields(kernels, rows, suffix):
+    """Add each kernel's row of fields to its kernels-line entry, keys
+    suffixed."""
+    for k in kernels:
+        if k["name"] in rows:
+            k.update({f"{key}_{suffix}": v
+                      for key, v in rows[k["name"]].items()})
+
+
 def tier2_inputs(dev):
     """The bench cloud (bench.synthetic_cloud, seed 0) and configs on dev."""
     import torch
@@ -134,6 +327,7 @@ def tier2_inputs(dev):
 
     motor, xyz, truth = bench.synthetic_cloud(N_POINTS)
     return SimpleNamespace(
+        T=TIER2,
         motor=torch.from_numpy(motor).to(dev),
         xyz=torch.from_numpy(xyz).to(dev),
         valid=torch.ones(N_POINTS, dtype=torch.bool, device=dev),
@@ -160,11 +354,16 @@ def tier2_job(inp, backend="auto"):
     return res, reg
 
 
-def tier2_stages(inp, backend="auto"):
-    """The job's stages as separate calls on fixed inputs, bench.py's stage
-    names -> zero-argument callables (intermediates computed once here)."""
+def job_stages(inp, backend="auto"):
+    """The job -- bench.py's step at the settings inp.T (TIER2, or
+    tools/tier3_inputs.TIER3: benchmarks/tier3_scale.py's step, parity mode,
+    full stage) -- as stage callables over one namespace s, by the stage
+    names of STAGES. Run in that order they are the job; each reads what
+    the stages before it left in s and writes its own output there, so
+    after one pass any stage can run again alone on the same inputs."""
     import torch
 
+    from vtkcloudpoint_tpu.config import ICPConfig
     from vtkcloudpoint_tpu_torch.cluster.blocks import (
         partition_gather_sorted)
     from vtkcloudpoint_tpu_torch.cluster.dbscan import dbscan_blocks_dispatch
@@ -174,49 +373,69 @@ def tier2_stages(inp, backend="auto"):
         bucket_payload_by_cluster, cluster_stats)
     from vtkcloudpoint_tpu_torch.register.icp import icp
 
-    s = SimpleNamespace()
+    T, s = inp.T, SimpleNamespace()
+    n = inp.motor.shape[0]
 
     def partition():
-        return partition_gather_sorted(inp.motor, inp.valid, BLOCK_CAP,
-                                       MAX_BLOCKS)
+        s.bc, s.bv, s.pidx, s.gather_overflow = partition_gather_sorted(
+            inp.motor, inp.valid, T["block_cap"], T["max_blocks"])
 
     def dbscan():
-        return dbscan_blocks_dispatch(s.bc, s.bv, EPS, MIN_PTS,
-                                      backend=backend)
+        s.db = dbscan_blocks_dispatch(s.bc, s.bv, T["eps"], T["min_pts"],
+                                      T["metric"], backend=backend)
 
     def fusion():
-        return merge_blocks(s.db["label"], s.bv, s.bc, s.pidx, N_POINTS,
-                            EPS, MIN_PTS, quirks=False,
-                            noise_capacity=NOISE_CAP)
+        s.fused = merge_blocks(
+            s.db["label"], s.bv, s.bc, s.pidx, n, T["eps"], T["min_pts"],
+            T["metric"], quirks=False, noise_capacity=T["noise_cap"],
+            noise_cell_cap=T["noise_cell_cap"])
 
     def stats():
-        return cluster_stats(inp.xyz, inp.motor, s.label, inp.valid,
-                             MAX_CLUSTERS)
+        s.stats = cluster_stats(inp.xyz, inp.motor, s.fused["label"],
+                                inp.valid, T["max_clusters"])
 
     def bucket():
         pay = (inp.xyz[:, 0], inp.xyz[:, 1], inp.motor[:, 0],
                inp.motor[:, 1])
-        return bucket_payload_by_cluster(s.label, inp.valid, pay,
-                                         MAX_CLUSTERS, CLUSTER_CAP)
+        tabs, tval, runs, s.bucket_overflow = bucket_payload_by_cluster(
+            s.fused["label"], inp.valid, pay, T["max_clusters"],
+            T["cluster_cap"])
+        s.both = torch.cat([tabs[..., 0:2], tabs[..., 2:4]]).contiguous()
+        s.bval = torch.cat([tval, tval])
+        s.bcnt = torch.cat([runs, runs])
 
     def shapes_x2():
-        return cluster_shapes(s.both, s.bval, s.bcnt, max_hull=MAX_HULL,
-                              backend=backend)
+        s.shapes = cluster_shapes(s.both, s.bval, s.bcnt,
+                                  max_hull=T["max_hull"],
+                                  chunk_k=T["shape_chunk_k"], backend=backend)
 
     def icp_stage():
-        return icp(s.stats["center3d"], s.stats["count"] > 0, inp.truth,
-                   inp.truth_valid, inp.icfg, chunk=1024, backend=backend)
+        s.reg = icp(s.stats["center3d"], s.stats["count"] > 0, inp.truth,
+                    inp.truth_valid,
+                    ICPConfig(max_iterations=T["icp_iterations"]),
+                    chunk=T["icp_chunk"], backend=backend)
 
-    s.bc, s.bv, s.pidx, _ = partition()
-    s.db = dbscan()
-    s.label = fusion()["label"]
-    s.stats = stats()
-    tabs, tval, runs, _ = bucket()
-    s.both = torch.cat([tabs[..., 0:2], tabs[..., 2:4]], dim=0).contiguous()
-    s.bval = torch.cat([tval, tval])
-    s.bcnt = torch.cat([runs, runs])
     fns = (partition, dbscan, fusion, stats, bucket, shapes_x2, icp_stage)
     return dict(zip(STAGES, fns)), s
+
+
+def staged_job(inp, backend="auto", timer=None):
+    """One pass of job_stages, each stage under ``timer`` if given. Returns
+    the namespace of its outputs."""
+    stages, s = job_stages(inp, backend)
+    for name, fn in stages.items():
+        with timer(name) if timer else contextlib.nullcontext():
+            fn()
+    return s
+
+
+def tier2_stages(inp, backend="auto"):
+    """The tier-2 job's stages (job_stages at TIER2), after one pass: the
+    namespace holds every intermediate."""
+    stages, s = job_stages(inp, backend)
+    for fn in stages.values():
+        fn()
+    return stages, s
 
 
 class StepTimer:
@@ -405,9 +624,6 @@ def engine_phase(dev, card, kernels):
     its plain version at the session's shapes."""
     import torch
 
-    from vtkcloudpoint_tpu_torch.kernels import dbscan as k_dbscan
-    from vtkcloudpoint_tpu_torch.kernels import neighbor as k_nn
-    from vtkcloudpoint_tpu_torch.kernels import shapes as k_shapes
     from vtkcloudpoint_tpu_torch.ops.segment import bucket_payload_by_cluster
 
     sess = engine_session_inputs()
@@ -419,15 +635,11 @@ def engine_phase(dev, card, kernels):
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
 
-        mods = {"dbscan_block": k_dbscan, "cluster_shapes": k_shapes,
-                "nn_argmin": k_nn}
-        for mod in mods.values():
-            mod.launches = 0
+        reset_launches()
         timer = StepTimer()
         run = engine_run(sess, dev, "auto", os.path.join(tmp, "cuda"),
                          timer)
-        torch.cuda.synchronize()
-        launches = {name: mod.launches for name, mod in mods.items()}
+        launches = read_launches()
         for name, n in launches.items():
             require(n > 0, f"kernel {name} did not launch in the Engine "
                            f"session")
@@ -461,9 +673,8 @@ def engine_phase(dev, card, kernels):
                      "iterations": int(a.iterations),
                      "error": float(a.error)}
 
-    label = res.label.cpu().numpy().astype(np.int32)
-    digest = hashlib.sha256(label.tobytes()).hexdigest()
-    got = {"n_clusters": int(res.n_clusters), "label_sha256": digest,
+    got = {"n_clusters": int(res.n_clusters),
+           "label_sha256": sha256_of(res.label),
            "n_rejected": int(run.rejected.sum()),
            "n_matched": int(run.match["n_matched"])}
     for key, value in got.items():
@@ -481,25 +692,10 @@ def engine_phase(dev, card, kernels):
         res.label, b.valid, pay, MAX_CLUSTERS, CLUSTER_CAP)
     both = torch.cat([tabs[..., 0:2], tabs[..., 2:4]], dim=0).contiguous()
     bval = torch.cat([tval, tval])
-    kout = k_shapes.shapes_cuda(both, bval, ENGINE_MAX_HULL)
-    pout = k_shapes.shapes_plain(both, bval, ENGINE_MAX_HULL)
-    err = 0.0
-    for name, x, y in zip(("center_x", "center_y", "radius", "len_long",
-                           "len_short", "area"), kout, pout):
-        bad = (x - y).abs() > SHAPES_ATOL + SHAPES_RTOL * y.abs()
-        require(not bool(bad.any()),
-                f"K2 h=64 {name} differs from the plain version at "
-                f"clusters {bad.nonzero()[:5].flatten().tolist()}")
-        err = max(err, float((x - y).abs().max()))
-    k2 = next(k for k in kernels if k["name"] == "cluster_shapes")
-    k2.update(max_abs_err_h64=err,
-              ms_h64=cuda_ms(lambda: k_shapes.shapes_cuda(
-                  both, bval, ENGINE_MAX_HULL), 20),
-              plain_ms_h64=cuda_ms(lambda: k_shapes.shapes_plain(
-                  both, bval, ENGINE_MAX_HULL), 3))
-    for k in kernels:
-        if k["name"] in launches:
-            k["launches_engine"] = launches[k["name"]]
+    row = hold_k2(both, bval, ENGINE_MAX_HULL, "Engine session")
+    add_fields(kernels, {"cluster_shapes": row}, "h64")
+    add_fields(kernels, {name: {"launches": n}
+                         for name, n in launches.items()}, "engine")
 
     print(json.dumps({
         "phase": "engine", "card": card, "n_points": len(sess.rng),
@@ -508,12 +704,381 @@ def engine_phase(dev, card, kernels):
         "block_overflow": int(res.block_overflow),
         "noise_overflow": int(res.noise_overflow),
         "launches": launches, "max_hull": ENGINE_MAX_HULL,
-        "k2_h64": f"K={both.shape[0]} cap={both.shape[1]}",
+        "k2_h64": row["shape"],
         "rmse": float(run.match["rmse"]), **regs,
         "plain_run_seconds": plain_s}))
     print(json.dumps({"phase": "engine_step_ms", "card": card,
                       "wall_ms": timer.wall, "event_ms": timer.device,
                       "wall_sum": sum(timer.wall.values())}))
+
+
+def tier3_inputs(dev):
+    """The tier-3 cloud and settings of tools/tier3_inputs.py on ``dev``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from tools.tier3_inputs import TIER3, tier3_cloud
+
+    motor, xyz, truth, k_true = tier3_cloud()
+    return SimpleNamespace(
+        T=TIER3, k_true=k_true,
+        motor=torch.from_numpy(motor).to(dev),
+        xyz=torch.from_numpy(xyz).to(dev),
+        valid=torch.ones(len(motor), dtype=torch.bool, device=dev),
+        truth=torch.from_numpy(truth).to(dev),
+        truth_valid=torch.ones(len(truth), dtype=torch.bool, device=dev))
+
+
+def tier3_result(s):
+    """The numbers of a tier-3 run that tools/jax_reference_tier3.py gives
+    for the JAX package (the bucket overflow without row 0, the noise row,
+    as benchmarks/tier3_scale.py counts it)."""
+    return {"n_clusters": int(s.fused["n_total"]),
+            "label_sha256": sha256_of(s.fused["label"]),
+            "noise_overflow": int(s.fused["noise_overflow"]),
+            "gather_overflow": int(s.gather_overflow.sum()),
+            "bucket_overflow": int(s.bucket_overflow[1:].sum()),
+            "icp_iterations": int(s.reg.iterations),
+            "icp_r": s.reg.r.cpu().numpy().tolist(),
+            "icp_t": s.reg.t.cpu().numpy().tolist(),
+            "icp_error": float(s.reg.error)}
+
+
+def tier3_phase(dev, card, kernels):
+    """(a) The 5M-point tier-3 job through the kernels and with the plain
+    versions, checked against each other and the JAX CPU constants; K1-K3
+    held to their plain versions at its shapes; the noise stage on the grid
+    engine against dense_chunked."""
+    import torch
+
+    from vtkcloudpoint_tpu_torch.cluster.fusion import merge_blocks
+
+    inp = tier3_inputs(dev)
+    T = inp.T
+    t0 = time.perf_counter()
+    plain = staged_job(inp, "torch")
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+
+    reset_launches()
+    timer = StepTimer()
+    t0 = time.perf_counter()
+    s = staged_job(inp, "auto", timer)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} did not launch in the tier-3 job")
+
+    got, ref = tier3_result(s), tier3_result(plain)
+    require(torch.equal(s.fused["label"], plain.fused["label"]),
+            "tier-3 labels differ from the plain run")
+    for key in ("n_clusters", "label_sha256", "noise_overflow",
+                "gather_overflow", "bucket_overflow"):
+        require(got[key] == JAX_TIER3[key],
+                f"tier-3 {key} {got[key]} != JAX CPU {JAX_TIER3[key]}")
+    require(got["icp_iterations"] == JAX_TIER3["icp_iterations"],
+            f"tier-3 ICP iterations {got['icp_iterations']} != JAX CPU "
+            f"(Pallas NN) {JAX_TIER3['icp_iterations']}")
+    for key in ("icp_r", "icp_t"):
+        require(np.allclose(got[key], JAX_TIER3[key], atol=1e-4),
+                f"tier-3 {key} {got[key]} far from the JAX CPU result")
+        require(np.allclose(got[key], ref[key], atol=1e-5),
+                f"tier-3 {key} differs from the plain run")
+    radii = s.shapes["radius"][:T["max_clusters"]]
+    require(bool(torch.isfinite(radii).all()), "tier-3 radii not finite")
+
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        staged_job(inp)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    # the noise stage on the grid engine ("auto") and on dense_chunked
+    def noise(engine):
+        return merge_blocks(
+            s.db["label"], s.bv, s.bc, s.pidx, inp.motor.shape[0], T["eps"],
+            T["min_pts"], T["metric"], quirks=False,
+            noise_capacity=T["noise_cap"], noise_engine=engine,
+            noise_cell_cap=T["noise_cell_cap"])
+    dense = noise("dense_chunked")
+    require(torch.equal(dense["label"], s.fused["label"]),
+            "dense_chunked noise labels differ from the grid engine's")
+    noise_ms = {"grid": cuda_ms(lambda: noise("auto"), 3),
+                "dense_chunked": cuda_ms(lambda: noise("dense_chunked"), 1)}
+
+    rows = {"dbscan_block": hold_k1(s.bc, s.bv, T["eps"], T["min_pts"],
+                                    "tier 3"),
+            "cluster_shapes": hold_k2(s.both, s.bval, T["max_hull"],
+                                      "tier 3"),
+            "nn_argmin": hold_k3(first_icp_query(s.stats, inp.truth),
+                                 inp.truth, inp.truth_valid, "tier 3")}
+    for name, n in launches.items():
+        rows[name]["launches"] = n
+    add_fields(kernels, rows, "tier3")
+    print(json.dumps({
+        "phase": "tier3_job", "card": card, "n_points": T["n_points"],
+        "blocks": T["max_blocks"], "k_true": inp.k_true, **got,
+        "jax_cpu_n_clusters": JAX_TIER3["n_clusters"],
+        "tpu_record_n_clusters": TPU_RECORD_TIER3_N_CLUSTERS,
+        "jax_cpu_matches": True, "labels_equal_plain_run": True,
+        "launches": launches, "first_run_seconds": first_s,
+        "plain_run_seconds": plain_s,
+        "kernel_shapes": {k: v["shape"] for k, v in rows.items()}}))
+    print(json.dumps({"phase": "tier3_stage_ms", "card": card,
+                      "event_ms": timer.device, "wall_ms": timer.wall,
+                      "event_sum": sum(timer.device.values()),
+                      "job_wall_ms": walls,
+                      "noise_stage_ms": noise_ms,
+                      "noise_labels_equal": True}))
+
+
+def grid_engine_phase(dev, card):
+    """(b) Engine.cluster_grid on the Engine session at cell_cap 2048: exact
+    global DBSCAN, checked against the JAX CPU constants."""
+    import torch
+
+    from tools.engine_session import SESSION, engine_config
+    from tools.tier3_inputs import GRID_ENGINE
+    from vtkcloudpoint_tpu_torch.engine import Engine
+
+    sess = engine_session_inputs()
+    eng = Engine(engine_config(), device=dev)
+    batch = eng.filter_by_distance(
+        eng.import_arrays(sess.motor, sess.rng, capacity=SESSION["capacity"]),
+        SESSION["dis_min"], SESSION["dis_max"])
+    reset_launches()
+    t0 = time.perf_counter()
+    out, stats = eng.cluster_grid(batch, **GRID_ENGINE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    count = stats["count"]
+    got = {"n_clusters": int(out["n_clusters"]),
+           "label_sha256": sha256_of(out["label"]),
+           "overflow": int(out["overflow"]),
+           "n_core": int(out["core"].sum()),
+           "count_sha256": sha256_of(count),
+           "n_nonempty": int((count[1:] > 0).sum()),
+           "n_filtered": int(batch.count)}
+    for key, value in got.items():
+        require(value == JAX_GRID_ENGINE[key],
+                f"cluster_grid {key} {value} != JAX CPU "
+                f"{JAX_GRID_ENGINE[key]}")
+    print(json.dumps({"phase": "cluster_grid", "card": card, **GRID_ENGINE,
+                      **got, "jax_cpu_matches": True, "launches": launches,
+                      "wall_s": wall}))
+
+
+def icp_grid_phase(dev, card, kernels):
+    """(c) Grid ICP against brute-force ICP through K3 at 100,000 target and
+    source points, and against the JAX CPU constants: in float64 (the plain
+    versions, K3 being float32 only) to F64_ICP_GRID_TOL, so the loop,
+    weights and composition are JAX's; in float32 R to JAX's float32 run
+    and t to JAX's float64 answer."""
+    import torch
+
+    from tools.tier3_inputs import NN, nn_cell, nn_inputs
+    from vtkcloudpoint_tpu.config import ICPConfig
+    from vtkcloudpoint_tpu_torch.register.icp import icp
+    from vtkcloudpoint_tpu_torch.register.nn_grid import (build_nn_grid,
+                                                          icp_grid)
+
+    src, tgt = (torch.from_numpy(a).to(dev) for a in nn_inputs())
+    sv = torch.ones(src.shape[0], dtype=torch.bool, device=dev)
+    tv = torch.ones(tgt.shape[0], dtype=torch.bool, device=dev)
+    cfg = ICPConfig(max_iterations=NN["max_iterations"], tol=NN["tol"])
+    cell = nn_cell(NN["m"])
+
+    def grid_run():
+        return icp_grid(src, sv, tgt, tv, cfg, cell_size=cell,
+                        cell_cap=NN["cell_cap"],
+                        fallback_cap=NN["fallback_cap"])
+
+    def brute_run():
+        return icp(src, sv, tgt, tv, cfg)
+
+    build_ms = cuda_ms(lambda: build_nn_grid(tgt, tv, cell), 3)
+    reset_launches()
+    t0 = time.perf_counter()
+    res, overflow = grid_run()
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    launches = read_launches()
+    require(launches["nn_argmin"] > 0, "K3 did not launch in grid ICP")
+    t0 = time.perf_counter()
+    brute = brute_run()
+    torch.cuda.synchronize()
+    brute_s = time.perf_counter() - t0
+
+    r, t = res.r.cpu().numpy(), res.t.cpu().numpy()
+    dr = float(np.abs(r - brute.r.cpu().numpy()).max())
+    dt = float(np.abs(t - brute.t.cpu().numpy()).max())
+    require(int(overflow) == JAX_ICP_GRID["overflow"] == 0,
+            f"grid ICP unresolved overflow {int(overflow)}")
+    require(dr <= ICP_GRID_TOL and dt <= ICP_GRID_TOL,
+            f"grid ICP R, t differ from brute ICP by {dr}, {dt}")
+    require(int(res.iterations) == JAX_ICP_GRID["icp_iterations"],
+            f"grid ICP iterations {int(res.iterations)} != JAX CPU "
+            f"{JAX_ICP_GRID['icp_iterations']}")
+
+    def gap(a, b):
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+    t0 = time.perf_counter()
+    res64, overflow64 = icp_grid(
+        src.double(), sv, tgt.double(), tv, cfg, cell_size=cell,
+        cell_cap=NN["cell_cap"], fallback_cap=NN["fallback_cap"],
+        backend="torch")
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    ref64 = JAX_ICP_GRID_F64
+    f64 = {"dR": gap(res64.r.cpu(), ref64["icp_r"]),
+           "dt": gap(res64.t.cpu(), ref64["icp_t"])}
+    require(int(overflow64) == 0
+            and int(res64.iterations) == ref64["icp_iterations"]
+            and max(f64.values()) <= F64_ICP_GRID_TOL,
+            f"float64 grid ICP differs from JAX's float64 run: {f64}, "
+            f"{int(res64.iterations)} iterations")
+    jax = {"dR": gap(r, JAX_ICP_GRID["icp_r"]),
+           "dt": gap(t, JAX_ICP_GRID["icp_t"]),
+           "dt_f64": gap(t, ref64["icp_t"]),
+           "jax_f32_dt_f64": gap(JAX_ICP_GRID["icp_t"], ref64["icp_t"])}
+    require(jax["dR"] <= JAX_ICP_GRID_TOL
+            and jax["dt_f64"] <= F32_ICP_GRID_T_TOL,
+            f"grid ICP R, t far from the JAX CPU results: {jax}")
+
+    row = hold_k3(src[:NN["fallback_cap"]].contiguous(), tgt, tv,
+                  "grid ICP fallback")
+    add_fields(kernels, {"nn_argmin": {**row, "launches": launches[
+        "nn_argmin"]}}, "icp_grid")
+    print(json.dumps({
+        "phase": "icp_grid", "card": card, "m": NN["m"],
+        "n_src": NN["n_src"], "cell": cell, "cell_cap": NN["cell_cap"],
+        "fallback_cap": NN["fallback_cap"], "overflow": int(overflow),
+        "iterations": int(res.iterations),
+        "brute_iterations": int(brute.iterations),
+        "max_abs_dR_brute": dr, "max_abs_dt_brute": dt,
+        "max_abs_jax_f32": jax, "max_abs_jax_f64": f64,
+        "icp_error": float(res.error), "launches": launches,
+        "build_ms": build_ms, "grid_wall_s": grid_s,
+        "brute_wall_s": brute_s, "f64_wall_s": f64_s}))
+
+
+def halo_phase(inp, card):
+    """(d) cluster_scan(halo_merge=True) on the tier-2 cloud through the
+    kernels and with the plain versions, checked against the JAX CPU
+    constants."""
+    import torch
+
+    from tools.tier3_inputs import HALO
+    from vtkcloudpoint_tpu_torch.cluster.pipeline import cluster_scan
+
+    def run(backend):
+        return cluster_scan(
+            inp.xyz, inp.motor, inp.valid, inp.cfg, mode="balanced",
+            max_blocks=MAX_BLOCKS, quirks=False, noise_capacity=NOISE_CAP,
+            max_clusters=MAX_CLUSTERS, cluster_capacity=CLUSTER_CAP,
+            max_hull=MAX_HULL, halo_merge=True, halo_cap=HALO["halo_cap"],
+            backend=backend)
+
+    t0 = time.perf_counter()
+    plain = run("torch")
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run("auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for name in ("dbscan_block", "cluster_shapes"):
+        require(launches[name] > 0, f"kernel {name} did not launch in the "
+                                    f"halo run")
+    got = {"n_clusters": int(res.n_clusters),
+           "label_sha256": sha256_of(res.label)}
+    require(torch.equal(res.label, plain.label),
+            "halo-union labels differ from the plain run")
+    for key, value in got.items():
+        require(value == JAX_HALO[key],
+                f"halo {key} {value} != JAX CPU {JAX_HALO[key]}")
+    require(int(res.block_overflow) == 0 and int(res.noise_overflow) == 0,
+            "halo run overflowed")
+    print(json.dumps({"phase": "halo_union", "card": card, **HALO, **got,
+                      "jax_cpu_matches": True,
+                      "labels_equal_plain_run": True,
+                      "halo_points": MAX_BLOCKS * HALO["halo_cap"],
+                      "launches": launches, "wall_s": wall,
+                      "plain_wall_s": plain_s}))
+
+
+def shape_variants_phase(s, card):
+    """(e) cluster_shapes' plain variants -- candidate pruning, quickhull,
+    the Elzinga-Hearn MEC -- on the card at K2's tier-2 inputs. Each equals
+    the same variant on the CPU (the path the CPU tests hold to the JAX
+    package) at rtol 2e-5. Against K2: pruning, where it overflowed
+    nothing, gives K2's radius and area; quickhull gives K2's area where
+    the wrap hull has fewer than max_hull vertices, and its radius
+    differences there are printed (the pair/triple scan's float32
+    containment test depends on the hull's vertex order, in the JAX
+    package too); so is the E-H radius error."""
+    from vtkcloudpoint_tpu_torch.ops.geometry import (cluster_shapes,
+                                                      convex_hull,
+                                                      hull_prune_pack)
+
+    def shapes(both, bval, bcnt, **kw):
+        return cluster_shapes(both, bval, bcnt, max_hull=MAX_HULL, **kw)
+
+    def close(a, b):
+        return (a - b).abs() <= SHAPES_ATOL + SHAPES_RTOL * b.abs()
+
+    card_in = (s.both, s.bval, s.bcnt)
+    cpu_in = tuple(t.cpu() for t in card_in)
+    k2 = shapes(*card_in)
+    variants = {"prune_cap": dict(prune_cap=PRUNE_CAP),
+                "quick": dict(hull="quick"), "eh": dict(mec="eh")}
+    reset_launches()
+    out = {name: shapes(*card_in, **kw) for name, kw in variants.items()}
+    launches = read_launches()
+    for name, kw in variants.items():
+        ref = shapes(*cpu_in, **kw)
+        for key in ("center_x", "center_y", "radius", "rect_area"):
+            ok = close(out[name][key].cpu(), ref[key])
+            require(bool(ok.all()),
+                    f"shapes {name} {key} on the card differs from the CPU "
+                    f"at clusters {(~ok).nonzero()[:5].flatten().tolist()}")
+    prune_ok = hull_prune_pack(s.both, s.bval, PRUNE_CAP)[2] == 0
+    quick_ok = convex_hull(s.both, s.bval, MAX_HULL)[1].sum(dim=1) < MAX_HULL
+    held = {"prune_cap": (prune_ok, ("radius", "rect_area")),
+            "quick": (quick_ok, ("rect_area",))}
+    for name, (mask, keys) in held.items():
+        for key in keys:
+            ok = close(out[name][key], k2[key]) | ~mask
+            require(bool(ok.all()),
+                    f"shapes {name} {key} differs from K2 at clusters "
+                    f"{(~ok).nonzero()[:5].flatten().tolist()}")
+    report = {}
+    for name in variants:
+        err = (out[name]["radius"] - k2["radius"]).abs()
+        rel = err / k2["radius"].abs().clamp_min(1e-30)
+        mask = held[name][0] if name in held else err >= 0
+        differ = ~close(out[name]["radius"], k2["radius"]) & mask
+        report[name] = {"compared": int(mask.sum()),
+                        "radius_differs_from_k2": differ.nonzero()
+                        .flatten().tolist()[:8],
+                        "max_abs_err_radius": float(err[mask].max()),
+                        "max_rel_err_radius": float(rel[mask].max()),
+                        "ms": cuda_ms(lambda: shapes(*card_in, **variants[
+                            name]), 1)}
+    report["prune_cap"]["prune_overflow"] = int(
+        out["prune_cap"]["prune_overflow"])
+    print(json.dumps({"phase": "shape_variants", "card": card,
+                      "shape": "K=%d cap=%d h=%d" % (*s.both.shape[:2],
+                                                     MAX_HULL),
+                      "equal_on_cpu": True, "k2_ms": cuda_ms(
+                          lambda: shapes(*card_in), 5),
+                      "launches": launches, **report}))
 
 
 def main():
@@ -522,11 +1087,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from vtkcloudpoint_tpu_torch.cluster.dbscan import dbscan_blocks
     from vtkcloudpoint_tpu_torch.kernels import build
-    from vtkcloudpoint_tpu_torch.kernels import dbscan as k_dbscan
-    from vtkcloudpoint_tpu_torch.kernels import neighbor as k_nn
-    from vtkcloudpoint_tpu_torch.kernels import shapes as k_shapes
 
     dev = torch.device("cuda", 0)
     card = card_name()
@@ -555,83 +1116,30 @@ def main():
 
     # ---- each kernel against its plain version, at the job's shapes ----
     _, s = tier2_stages(inp)
-    kernels = []
-    kout = k_dbscan.dbscan_blocks_cuda(s.bc, s.bv, EPS, MIN_PTS)
-    pout = dbscan_blocks(s.bc, s.bv, EPS, MIN_PTS)
-    for key in ("label", "n_clusters", "core"):
-        require(torch.equal(kout[key], pout[key]),
-                f"K1 {key} differs from the plain version")
-    k1_core = kout["core"]
-    kernels.append({
-        "name": "dbscan_block", "route": "cuda", "source": k_dbscan.SOURCE,
-        "replaces": k_dbscan.REPLACES,
-        "max_abs_err": float((kout["label"] - pout["label"]).abs().max()),
-        "ms": cuda_ms(lambda: k_dbscan.dbscan_blocks_cuda(
-            s.bc, s.bv, EPS, MIN_PTS), 20),
-        "plain_ms": cuda_ms(lambda: dbscan_blocks(s.bc, s.bv, EPS, MIN_PTS),
-                            3),
-    })
-
-    kout = k_shapes.shapes_cuda(s.both, s.bval, MAX_HULL)
-    pout = k_shapes.shapes_plain(s.both, s.bval, MAX_HULL)
-    names = ("center_x", "center_y", "radius", "len_long", "len_short",
-             "area")
-    err = 0.0
-    for name, a, b in zip(names, kout, pout):
-        bad = (a - b).abs() > SHAPES_ATOL + SHAPES_RTOL * b.abs()
-        require(not bool(bad.any()),
-                f"K2 {name} differs from the plain version at clusters "
-                f"{bad.nonzero()[:5].flatten().tolist()}")
-        err = max(err, float((a - b).abs().max()))
-    kernels.append({
-        "name": "cluster_shapes", "route": "cuda",
-        "source": k_shapes.SOURCE, "replaces": k_shapes.REPLACES,
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: k_shapes.shapes_cuda(s.both, s.bval,
-                                                   MAX_HULL), 20),
-        "plain_ms": cuda_ms(lambda: k_shapes.shapes_plain(s.both, s.bval,
-                                                          MAX_HULL), 3),
-    })
-
-    # the first ICP correspondence: centres moved by the centroid offset
-    w = (s.stats["count"] > 0).float()
-    centers = s.stats["center3d"]
-    query = (centers + inp.truth.mean(dim=0) - (centers * w[:, None]).sum(
-        dim=0) / w.sum().clamp_min(1.0)).contiguous()
-    args = (query, inp.truth, inp.truth_valid)
-    kidx, kd2 = k_nn.nn_cuda(*args)
-    pidx, pd2 = k_nn.nn_plain(*args, 1024)
-    require(torch.equal(kidx, pidx), "K3 idx differs from the plain version")
-    require(torch.equal(kd2, pd2), "K3 d2 differs from the plain version")
-    kernels.append({
-        "name": "nn_argmin", "route": "cuda", "source": k_nn.SOURCE,
-        "replaces": k_nn.REPLACES,
-        "max_abs_err": float((kd2 - pd2).abs().max()),
-        "ms": cuda_ms(lambda: k_nn.nn_cuda(*args), 100),
-        "plain_ms": cuda_ms(lambda: k_nn.nn_plain(*args, 1024), 100),
-    })
-    print(json.dumps({
-        "phase": "kernel_checks", "ok": True,
-        "dbscan_block": "B=%d cap=%d D=%d" % tuple(s.bc.shape),
-        "cluster_shapes": "K=%d cap=%d h=%d" % (*s.both.shape[:2], MAX_HULL),
-        "nn_argmin": "N=%d M=%d" % (query.shape[0], inp.truth.shape[0])}))
+    rows = {"dbscan_block": hold_k1(s.bc, s.bv, EPS, MIN_PTS, "tier 2"),
+            "cluster_shapes": hold_k2(s.both, s.bval, MAX_HULL, "tier 2"),
+            "nn_argmin": hold_k3(first_icp_query(s.stats, inp.truth),
+                                 inp.truth, inp.truth_valid, "tier 2")}
+    mods = kernel_modules()
+    kernels = [{"name": name, "route": "cuda", "source": mods[name].SOURCE,
+                "replaces": mods[name].REPLACES, **row}
+               for name, row in rows.items()]
+    print(json.dumps({"phase": "kernel_checks", "ok": True,
+                      **{name: row["shape"] for name, row in rows.items()}}))
 
     # ---- the main path through the kernels ----
-    modules = {"dbscan_block": k_dbscan, "cluster_shapes": k_shapes,
-               "nn_argmin": k_nn}
-    for mod in modules.values():
-        mod.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res, reg = tier2_job(inp, "auto")
     torch.cuda.synchronize()
     job_s = time.perf_counter() - t0
+    launches = read_launches()
     for k in kernels:
-        k["launches"] = modules[k["name"]].launches
+        k["launches"] = launches[k["name"]]
         require(k["launches"] > 0,
                 f"kernel {k['name']} did not launch on the main path")
 
-    label = res.label.cpu().numpy().astype(np.int32)
-    digest = hashlib.sha256(label.tobytes()).hexdigest()
+    digest = sha256_of(res.label)
     n_clusters = int(res.n_clusters)
     require(int(res.block_overflow) == 0, "block overflow")
     require(int(res.noise_overflow) == 0, "noise overflow")
@@ -686,8 +1194,15 @@ def main():
                       "job_wall_ms": walls}))
 
     # ---- K4 on its own entry point; the Engine session ----
-    kernels.append(radius_phase(inp, s, k1_core, card))
+    kernels.append(radius_phase(inp, s, s.db["core"], card))
     engine_phase(dev, card, kernels)
+
+    # ---- the tier-3 paths: grid engines, halo union, shape variants ----
+    shape_variants_phase(s, card)
+    halo_phase(inp, card)
+    grid_engine_phase(dev, card)
+    icp_grid_phase(dev, card, kernels)
+    tier3_phase(dev, card, kernels)
 
     require("jax" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": kernels}))

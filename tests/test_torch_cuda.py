@@ -12,12 +12,16 @@ import torch
 
 from vtkcloudpoint_tpu.config import ClusterConfig, EngineConfig, ICPConfig
 from vtkcloudpoint_tpu_torch.cluster.dbscan import dbscan_blocks
+from vtkcloudpoint_tpu_torch.cluster.grid import dbscan_grid
+from vtkcloudpoint_tpu_torch.cluster.halo_fusion import grid_union_ids
 from vtkcloudpoint_tpu_torch.cluster.pipeline import cluster_scan
 from vtkcloudpoint_tpu_torch.engine import Engine
 from vtkcloudpoint_tpu_torch.kernels import dbscan as k_dbscan
 from vtkcloudpoint_tpu_torch.kernels import neighbor as k_nn
 from vtkcloudpoint_tpu_torch.kernels import shapes as k_shapes
 from vtkcloudpoint_tpu_torch.register.icp import icp
+from vtkcloudpoint_tpu_torch.register.nn_grid import (build_nn_grid,
+                                                      icp_grid, nn_grid)
 
 pytestmark = pytest.mark.cuda
 
@@ -258,3 +262,109 @@ def test_engine_on_card_equals_plain(gpu):
         torch.testing.assert_close(gb.t, ga.t, rtol=0, atol=1e-5)
         assert torch.equal(ma["match_idx"], mb["match_idx"])
         assert int(ma["n_matched"]) == int(mb["n_matched"])
+
+
+@pytest.mark.parametrize("metric,dims,cell_cap", [
+    ("l1_motor", 2, 128), ("l1_motor", 2, 4), ("l2_xyz", 3, 128),
+    ("l2_xy", 2, 128)])
+def test_grid_engine_on_card_equals_cpu(gpu, metric, dims, cell_cap):
+    """Grid-hash DBSCAN on a CUDA tensor and on the CPU: labels, core
+    flags, n_clusters and the cell overflow bit-equal (cell_cap 4
+    overflows)."""
+    rng = np.random.default_rng(dims * 100 + cell_cap)
+    pts = _blobs(rng, 10, 80, 300, 0.008, dims).astype(np.float32)
+    valid = rng.random(len(pts)) < 0.95
+    outs = [dbscan_grid(torch.from_numpy(pts).to(dev),
+                        torch.from_numpy(valid).to(dev), 0.02, 6, metric,
+                        cf=3, cell_cap=cell_cap) for dev in ("cpu", gpu)]
+    for key in ("label", "n_clusters", "core", "overflow"):
+        assert torch.equal(outs[0][key], outs[1][key].cpu()), key
+    assert int(outs[0]["n_clusters"]) > 0
+    assert (cell_cap == 4) == (int(outs[0]["overflow"]) > 0)
+
+
+@pytest.mark.parametrize("fallback_cap", [0, 64, 4096])
+def test_nn_grid_on_card_equals_cpu(gpu, fallback_cap):
+    """Grid NN on a CUDA tensor (the fallback through K3) and on the CPU
+    (the fallback through its plain version): idx, resolved and the
+    overflow bit-equal, d2 rtol 1e-6."""
+    rng = np.random.default_rng(fallback_cap)
+    ref = rng.uniform(0, 10, (5000, 3)).astype(np.float32)
+    rv = rng.random(5000) < 0.9
+    query = np.concatenate([
+        ref[rng.integers(0, 5000, 1500)]
+        + 0.05 * rng.standard_normal((1500, 3)),
+        rng.uniform(12, 14, (100, 3))]).astype(np.float32)
+    outs = []
+    for dev in ("cpu", gpu):
+        r, v = torch.from_numpy(ref).to(dev), torch.from_numpy(rv).to(dev)
+        grid = build_nn_grid(r, v, 0.5)
+        outs.append(nn_grid(grid, torch.from_numpy(query).to(dev), r, v, 0.5,
+                            cell_cap=16, fallback_cap=fallback_cap))
+    (ai, ad, ar, ao), (bi, bd, br, bo) = outs
+    assert torch.equal(ai, bi.cpu()) and torch.equal(ar, br.cpu())
+    assert int(ao) == int(bo) >= max(0, 100 - fallback_cap)
+    torch.testing.assert_close(bd.cpu(), ad, rtol=1e-6, atol=0)
+
+
+def test_icp_grid_on_card_equals_cpu(gpu):
+    rng = np.random.default_rng(4)
+    tgt = (rng.uniform(0, 20, (20000, 3)) * [1, 1, 0.1]).astype(np.float32)
+    c, s = np.cos(0.05), np.sin(0.05)
+    rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    src = ((tgt[rng.integers(0, 20000, 4000)] - [0.2, -0.1, 0.05]) @ rot
+           ).astype(np.float32)
+    out = []
+    for dev in ("cpu", gpu):
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        res, ovf = icp_grid(t(src), torch.ones(4000, dtype=torch.bool,
+                                               device=dev),
+                            t(tgt), torch.ones(20000, dtype=torch.bool,
+                                               device=dev),
+                            ICPConfig(max_iterations=20), cell_size=0.8,
+                            cell_cap=64, fallback_cap=1024)
+        out.append((res, int(ovf)))
+    (ra, oa), (rb, ob) = out
+    assert oa == ob
+    assert int(ra.iterations) == int(rb.iterations)
+    torch.testing.assert_close(rb.r.cpu(), ra.r, rtol=0, atol=1e-5)
+    torch.testing.assert_close(rb.t.cpu(), ra.t, rtol=0, atol=1e-5)
+
+
+def _stripe_scan(seed):
+    """A long stripe that Morton blocks cut into pieces, and blobs."""
+    rng = np.random.default_rng(seed)
+    stripe = np.stack([np.linspace(0.05, 0.95, 900),
+                       0.5 + 0.004 * rng.standard_normal(900)], -1)
+    motor = np.concatenate([stripe, _blobs(rng, 8, 60, 100, 0.01, 2)])
+    return motor.astype(np.float32)
+
+
+def test_halo_union_on_card_equals_cpu(gpu):
+    """cluster_scan(halo_merge=True) and grid_union_ids on a CUDA tensor
+    and on the CPU: labels, n_clusters and the id remap bit-equal."""
+    motor = _stripe_scan(5)
+    n = len(motor)
+    xyz = np.concatenate([motor, np.ones((n, 1), np.float32)], 1)
+    cfg = EngineConfig(cluster=ClusterConfig(eps=0.01, min_pts=4,
+                                             block_capacity=128))
+    kw = dict(mode="balanced", max_blocks=(n + 127) // 128, quirks=False,
+              noise_capacity=1024, max_clusters=256, cluster_capacity=1024,
+              max_hull=16, halo_merge=True, halo_cap=64)
+    runs = {}
+    for dev in ("cpu", gpu):
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        res = cluster_scan(t(xyz), t(motor),
+                           torch.ones(n, dtype=torch.bool, device=dev), cfg,
+                           **kw)
+        hx = t(motor[::3].copy())
+        hlab = t((np.arange(len(hx)) % 40 + 1).astype(np.int32))
+        uni = grid_union_ids(hx, hlab, torch.ones(len(hx), dtype=torch.bool,
+                                                  device=dev),
+                             40, 0.01, "l1_motor", 64, cell_cap=64)
+        runs[str(dev)] = (res, uni)
+    (a, ua), (b, ub) = runs["cpu"], runs[str(gpu)]
+    assert torch.equal(a.label, b.label.cpu())
+    assert int(a.n_clusters) == int(b.n_clusters) > 0
+    for key in ("remap", "n_after", "idmap", "overflow"):
+        assert torch.equal(ua[key], ub[key].cpu()), key

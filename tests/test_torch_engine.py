@@ -199,10 +199,37 @@ def test_engine_refusals():
     assert eng.backend == "torch"
     batch = eng.import_arrays(np.zeros((4, 2), np.float32),
                               np.ones(4, np.float32))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        eng.cluster_grid(batch)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    out, stats = eng.cluster_grid(batch)       # ported: grid DBSCAN
+    assert int(out["n_clusters"]) == 0 and int(out["overflow"]) == 0
+    with pytest.raises(NotImplementedError, match="item 7"):
         eng.cluster_sharded(batch)
+
+
+@pytest.mark.parametrize("metric,cell_cap", [("l1_motor", 64),
+                                             ("l1_motor", 8),
+                                             ("l2_xyz", 64),
+                                             ("signed_sum_xy", 64)])
+def test_cluster_grid_matches_jax(both, metric, cell_cap):
+    """Engine.cluster_grid on the scan_folder session: grid DBSCAN labels,
+    core flags, n_clusters and overflow bit-equal, centroid table counts
+    equal and centres rtol 2e-5; signed_sum_xy falls back to motor L1 on
+    both sides. cell_cap 8 overflows."""
+    *_, folder = both
+    cfg = CFG.replace(cluster=ClusterConfig(
+        eps=0.08 if metric != "l2_xyz" else 0.5, min_pts=8, pts_in_cell=64,
+        metric=metric))
+    ja, tb = JEngine(cfg), TEngine(cfg, device="cpu")
+    (a, _), (b, _) = ja.import_folder(folder), tb.import_folder(folder)
+    ao, ast = ja.cluster_grid(a, cell_cap=cell_cap, max_clusters=256)
+    bo, bst = tb.cluster_grid(b, cell_cap=cell_cap, max_clusters=256)
+    for key in ("label", "core", "n_clusters", "overflow"):
+        np.testing.assert_array_equal(_np(ao[key]), _np(bo[key]),
+                                      err_msg=key)
+    np.testing.assert_array_equal(_np(ast["count"]), _np(bst["count"]))
+    np.testing.assert_allclose(_np(bst["center3d"]), _np(ast["center3d"]),
+                               rtol=2e-5, atol=1e-5)
+    assert int(bo["n_clusters"]) > 0
+    assert (cell_cap == 8) == (int(bo["overflow"]) > 0)
 
 
 def _marker_folder(path, seed):

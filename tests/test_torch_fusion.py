@@ -1,7 +1,9 @@
 """PyTorch port vs the JAX package: cross-block fusion (quirks on and off,
-PARITY Q4-Q6) and the centroid merge (Q7). Everything is integer: bit-equal.
+PARITY Q4-Q6), the noise engines and their "auto" choice, and the centroid
+merge (Q7). Everything is integer: bit-equal.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -34,9 +36,14 @@ def _blocked(seed, capacity=64, max_blocks=10):
 @pytest.mark.parametrize("quirks", [True, False])
 @pytest.mark.parametrize("engine,noise_capacity",
                          [("auto", 256), ("dense_chunked", 256),
-                          ("auto", 24)])
+                          ("auto", 24), ("grid", 256)])
 def test_merge_blocks(seed, quirks, engine, noise_capacity):
     n, lab, bv, bc, pidx = _blocked(seed)
+    if engine == "grid":
+        # JAX 0.9's executable cache can hand this jitted merge_blocks a
+        # program compiled for the other quirks setting ("supplied 4
+        # buffers but compiled program expected 5"); start it clean
+        jax.clear_caches()
     a = jf.merge_blocks(jnp.asarray(lab), jnp.asarray(bv), jnp.asarray(bc),
                         jnp.asarray(pidx), n, 0.05, 5, quirks=quirks,
                         noise_capacity=noise_capacity, noise_engine=engine)
@@ -52,11 +59,69 @@ def test_merge_blocks(seed, quirks, engine, noise_capacity):
 
 
 def test_grid_noise_engine_not_ported():
+    """noise_engine="grid" equals JAX's grid engine, and a metric without a
+    grid form is refused as JAX refuses it. (The name dates from when the
+    port refused this engine; it is kept so the test's record stays one.)"""
     n, lab, bv, bc, pidx = _blocked(2)
-    with pytest.raises(NotImplementedError, match="grid"):
+    args = (n, 0.05, 5)
+    a = jf.merge_blocks(jnp.asarray(lab), jnp.asarray(bv), jnp.asarray(bc),
+                        jnp.asarray(pidx), *args, noise_engine="grid",
+                        noise_cell_cap=8)
+    b = tf.merge_blocks(torch.from_numpy(lab), torch.from_numpy(bv),
+                        torch.from_numpy(bc), torch.from_numpy(pidx), *args,
+                        noise_engine="grid", noise_cell_cap=8)
+    for key in OUT_KEYS:
+        np.testing.assert_array_equal(np.asarray(a[key]), b[key].numpy(),
+                                      err_msg=key)
+    with pytest.raises(ValueError, match="grid form"):
         tf.merge_blocks(torch.from_numpy(lab), torch.from_numpy(bv),
+                        torch.from_numpy(bc), torch.from_numpy(pidx), *args,
+                        metric="signed_sum_xy", noise_engine="grid")
+
+
+def _overflowing_noise(seed=0, B=10, cap=1024, blob=100, scatter=200):
+    """Block inputs with no block cluster: every valid point is noise. 100
+    of them sit inside one eps-cell (spread 0.0004 about the centre of the
+    cell [0.5, 0.55)^2 at eps 0.05; a point at the origin fixes the grid),
+    the rest are uniform in [0, 1]^2."""
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([0.525 + 0.0004 * rng.standard_normal((blob, 2)),
+                          np.zeros((1, 2)),
+                          rng.uniform(0, 1, (scatter, 2))]).astype(np.float32)
+    coords = np.zeros((B * cap, 2), np.float32)
+    valid = np.zeros(B * cap, bool)
+    slots = np.sort(rng.choice(B * cap, len(pts), replace=False))
+    coords[slots] = pts
+    valid[slots] = True
+    pidx = np.full(B * cap, -1, np.int32)
+    pidx[slots] = np.arange(len(pts), dtype=np.int32)
+    return (len(pts), np.zeros((B, cap), np.int32), valid.reshape(B, cap),
+            coords.reshape(B, cap, 2), pidx.reshape(B, cap))
+
+
+def test_auto_noise_engine_follows_jax_above_dense_max():
+    """Above DENSE_MAX slots "auto" is the grid engine (JAX's rule off a
+    TPU). With 100 points in one cell and noise_cell_cap 32 the grid
+    overflows and, at min_pts 40, finds no core where the dense engines find
+    one cluster: the port must give JAX's grid labels, n_total and
+    noise_overflow (the cell overflow included)."""
+    n, lab, bv, bc, pidx = _overflowing_noise()
+    kw = dict(quirks=False, noise_capacity=9000, noise_cell_cap=32)
+    a = jf.merge_blocks(jnp.asarray(lab), jnp.asarray(bv), jnp.asarray(bc),
+                        jnp.asarray(pidx), n, 0.05, 40, noise_engine="auto",
+                        **kw)
+    dense = jf.merge_blocks(jnp.asarray(lab), jnp.asarray(bv),
+                            jnp.asarray(bc), jnp.asarray(pidx), n, 0.05, 40,
+                            noise_engine="dense_chunked", **kw)
+    assert int(a["noise_overflow"]) > 0
+    assert not np.array_equal(np.asarray(a["label"]),
+                              np.asarray(dense["label"]))
+    b = tf.merge_blocks(torch.from_numpy(lab), torch.from_numpy(bv),
                         torch.from_numpy(bc), torch.from_numpy(pidx), n,
-                        0.05, 5, noise_engine="grid")
+                        0.05, 40, noise_engine="auto", **kw)
+    for key in OUT_KEYS:
+        np.testing.assert_array_equal(np.asarray(a[key]), b[key].numpy(),
+                                      err_msg=key)
 
 
 @pytest.mark.parametrize("quirks", [True, False])

@@ -45,7 +45,8 @@ def test_slice_modules_present():
                 "kernels.shapes", "kernels.neighbor", "data.convert",
                 "data.pointbatch", "io.ingest", "register.matching",
                 "register.coarse", "cluster.seeded",
-                "workflows.fixed_points", "engine"):
+                "workflows.fixed_points", "engine", "cluster.grid",
+                "cluster.halo_fusion", "register.nn_grid"):
         assert f"vtkcloudpoint_tpu_torch.{mod}" in SLICE_MODULES
     for src in build.SOURCES:
         assert (build.CSRC / src).is_file()
@@ -193,3 +194,36 @@ def test_convert_round_trip_keeps_dtypes():
     assert back["a"].dtype == np.int32 and back["b"][0].dtype == bool
     np.testing.assert_array_equal(back["b"][1], tree["b"][1])
     assert isinstance(back["r"], ClusterResult)
+
+
+def test_multi_device_parts_raise_naming_item_7():
+    """Only the multi-device parts still raise, naming ROADMAP item 7."""
+    from vtkcloudpoint_tpu_torch.cluster.halo_fusion import halo_buffers
+    from vtkcloudpoint_tpu_torch.engine import Engine
+
+    coords, valid = _small_inputs()
+    labels = torch.ones(2, 32, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        halo_buffers(coords, valid, labels, valid, 0.1, 8, axis="data",
+                     cell_table_bits=10)
+    hx, hlab, hvalid, ovf = halo_buffers(coords, valid, labels, valid, 0.1,
+                                         8, cell_table_bits=10)
+    assert hx.shape == (16, 2) and int(ovf) >= 0
+    eng = Engine(EngineConfig(), device="cpu")
+    batch = eng.import_arrays(np.zeros((4, 2), np.float32),
+                              np.ones(4, np.float32))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        eng.cluster_sharded(batch)
+
+
+def test_no_not_implemented_left_but_multi_device():
+    """grep NotImplementedError over the port: the grid engines, the halo
+    union and the shape variants no longer raise it; the two multi-device
+    entry points do."""
+    hits = sorted(f"{p.relative_to(PACKAGE)}"
+                  for p in PACKAGE.rglob("*.py")
+                  for line in p.read_text().splitlines()
+                  if "NotImplementedError" in line)
+    assert hits == ["cluster/halo_fusion.py", "engine.py"]
+    for name in hits:
+        assert "item 7" in (PACKAGE / name).read_text(), name

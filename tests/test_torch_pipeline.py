@@ -121,7 +121,35 @@ def test_single_block_dbscan():
 
 
 def test_halo_merge_not_ported():
+    """cluster_scan(halo_merge=True) equals JAX on the blob scan in both
+    partition modes. (The name dates from when the port refused the halo
+    union; it is kept so the test's record stays one.)"""
     xyz, motor, valid, cfg = _blob_scan()
-    with pytest.raises(NotImplementedError, match="halo"):
-        tp.cluster_scan(torch.from_numpy(xyz), torch.from_numpy(motor),
-                        torch.from_numpy(valid), cfg, halo_merge=True)
+    for mode in ("reference", "balanced"):
+        a, b = _both(xyz, motor, valid, cfg, mode=mode, halo_merge=True,
+                     **BLOB_KW)
+        _compare(a, b)
+
+
+@pytest.mark.parametrize("halo_cap", [64, 8])
+def test_halo_merge_unifies_split_cluster(halo_cap):
+    """The split stripe of tests/test_halo_fusion.py through cluster_scan:
+    the halo union merges the stripe's block pieces as JAX does."""
+    from tests.test_halo_fusion import split_cluster_scene
+
+    pts = split_cluster_scene(np.random.default_rng(0)).astype(np.float32)
+    n = len(pts)
+    xyz = np.concatenate([pts, np.zeros((n, 1), np.float32)], 1)
+    cfg = EngineConfig(cluster=ClusterConfig(eps=0.08, min_pts=6,
+                                             block_capacity=128))
+    kw = dict(mode="balanced", max_blocks=4, quirks=False,
+              noise_capacity=512, max_clusters=64, cluster_capacity=512,
+              max_hull=16)
+    a, b = _both(xyz, pts, np.ones(n, bool), cfg, halo_merge=True,
+                 halo_cap=halo_cap, **kw)
+    _compare(a, b)
+    plain = tp.cluster_scan(*from_numpy((xyz, pts, np.ones(n, bool))), cfg,
+                            **kw)
+    # 8 halo slots per block hold too few boundary points to link a piece
+    if halo_cap == 64:
+        assert int(b.n_clusters) < int(plain.n_clusters)

@@ -140,6 +140,15 @@ def test_pseudo_angle_and_triple_table():
 @pytest.mark.parametrize("kw", [{"hull": "quick"}, {"mec": "eh"},
                                 {"prune_cap": 64}])
 def test_unported_variants_raise(kw):
+    """Each shape variant equals the JAX package's plain path
+    (tests/test_torch_shapes_variants.py holds them in depth). (The name
+    dates from when the port refused these variants; it is kept so the
+    test's record stays one.)"""
     points, valid, counts = _clusters(0, K=2)
-    with pytest.raises(NotImplementedError):
-        tg.cluster_shapes(*_torch(points, valid, counts), **kw)
+    ref = jg.cluster_shapes(jnp.asarray(points), jnp.asarray(valid),
+                            jnp.asarray(counts), max_hull=16, backend="jnp",
+                            **kw)
+    out = tg.cluster_shapes(*_torch(points, valid, counts), max_hull=16,
+                            **kw)
+    _close(ref, out, l0_flips=0.5)
+    assert int(out["prune_overflow"]) == int(ref["prune_overflow"])

@@ -40,6 +40,28 @@ def _gather_last(x, idx):
     return torch.gather(x, -1, idx.long())
 
 
+def fixpoint(step, x, max_iters: int):
+    """Apply ``step`` until a step changes nothing, at least once and at most
+    ``max_iters`` times (the JAX package's first step outside its while loop,
+    then ``while changed and it < max_iters``). Reads one flag from the
+    device per step; returns the last value."""
+    new = step(x)
+    it = 1
+    while it < max_iters and bool((new != x).any()):
+        x, new = new, step(new)
+        it += 1
+    return new
+
+
+def relabel(lab, nbr, core, inf):
+    """One propagation sweep's update over the last axis: a core point takes
+    the least of its label and its core neighbours' least label ``nbr``,
+    then one pointer jump ``min(new, new[new])``; others hold ``inf``."""
+    new = torch.where(core, torch.minimum(lab, nbr), inf)
+    jumped = _gather_last(new, new.clamp(0, max(new.shape[-1] - 1, 0)))
+    return torch.where(new < inf, torch.minimum(new, jumped), inf)
+
+
 def _min_label_fixpoint(core_adj, core, max_iters: int):
     """Min-index label propagation with pointer jumping over the core graph.
 
@@ -51,22 +73,11 @@ def _min_label_fixpoint(core_adj, core, max_iters: int):
     idx = torch.arange(n, dtype=torch.int32, device=core.device)
     inf = torch.tensor(n, dtype=torch.int32, device=core.device)
 
-    def body(lab):
+    def sweep(lab):
         nbr = torch.where(core_adj, lab[..., None, :], inf).amin(dim=-1)
-        new = torch.minimum(lab, nbr)
-        jumped = _gather_last(new, new.clamp(0, n - 1))
-        return torch.where(new < inf, torch.minimum(new, jumped), inf)
+        return relabel(lab, nbr, core, inf)
 
-    lab0 = torch.where(core, idx, inf)
-    lab = body(lab0)
-    changed = bool((lab != lab0).any())
-    it = 1
-    while changed and it < max_iters:
-        new = body(lab)
-        changed = bool((new != lab).any())
-        lab = new
-        it += 1
-    return lab
+    return fixpoint(sweep, torch.where(core, idx, inf), max_iters)
 
 
 def _finish(adj, core, valid, root, cf):
@@ -134,19 +145,9 @@ def dbscan_dense_chunked(coords, valid, eps: float, min_pts: int,
     def sweep(lab):
         nbr = row_reduce(lambda adj: torch.where(
             adj & core[None, :], lab[None, :], inf).amin(dim=1))
-        new = torch.where(core, torch.minimum(lab, nbr), inf)
-        jumped = new[new.clamp(0, max(n - 1, 0)).long()]
-        return torch.where(new < inf, torch.minimum(new, jumped), inf)
+        return relabel(lab, nbr, core, inf)
 
-    lab0 = torch.where(core, idx, inf)
-    lab = sweep(lab0)
-    changed = bool((lab != lab0).any())
-    it = 1
-    while changed and it < max_iters:
-        new = sweep(lab)
-        changed = bool((new != lab).any())
-        lab = new
-        it += 1
+    lab = fixpoint(sweep, torch.where(core, idx, inf), max_iters)
 
     is_root = core & (lab == idx)
     rank = torch.cumsum(is_root.to(torch.int32), 0, dtype=torch.int32)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from .dbscan import dbscan_dense_chunked, dbscan_padded
+from .grid import dbscan_grid, grid_metric
 
 DENSE_MAX = 8192   # stored-adjacency noise engine up to this capacity
 
@@ -94,14 +95,19 @@ def merge_blocks(block_labels, block_valid, block_coords, point_index,
                  n_points: int, eps: float, min_pts: int,
                  metric: str = "l1_motor", min_cluster_size: int = 3,
                  quirks: bool = True, noise_capacity: int = 4096,
-                 noise_engine: str = "auto"):
+                 noise_engine: str = "auto", noise_cell_cap: int = 32):
     """Fuse per-block local labels into global cluster ids.
 
     block_labels [B, cap] i32 local ids, block_valid [B, cap],
     block_coords [B, cap, D], point_index [B, cap] i32 (-1 pad).
+    ``noise_engine``: auto | dense | dense_chunked | grid; "auto" takes
+    dense up to DENSE_MAX slots, above it the grid engine (cell window
+    ``noise_cell_cap``) where the metric has a grid form, else
+    dense_chunked -- the JAX package's rule on every host but a TPU.
 
     Returns dict: label i32[n_points] (0 noise), n_kept, n_total (reference
-    dbb.clusterAmount semantics), noise_overflow.
+    dbb.clusterAmount semantics), noise_overflow (noise beyond capacity,
+    plus the grid engine's cell overflow).
     """
     B, cap = block_labels.shape
     counts = _block_label_counts(block_labels, block_valid, cap + 1)
@@ -117,17 +123,24 @@ def merge_blocks(block_labels, block_valid, block_coords, point_index,
     noise_coords = torch.where(sel_valid[:, None], coords_flat[order], 0.0)
 
     cf_seed = (n_kept - 1) if quirks else n_kept
+    gmetric = grid_metric(metric, noise_coords.shape[-1])
     if noise_engine == "auto":
-        # JAX picks the grid engine above DENSE_MAX on a CPU host; the
-        # engines are bit-identical by test, and the grid engine is not
-        # ported yet
-        noise_engine = ("dense" if noise_capacity <= DENSE_MAX
-                        else "dense_chunked")
+        # the JAX package takes dense_chunked above DENSE_MAX only on a TPU,
+        # where the grid's stencil gathers are slow; the grid engine equals
+        # it only while its cell overflow is 0
+        if noise_capacity <= DENSE_MAX:
+            noise_engine = "dense"
+        else:
+            noise_engine = "grid" if gmetric is not None else "dense_chunked"
+    grid_overflow = 0
     if noise_engine == "grid":
-        raise NotImplementedError(
-            "noise_engine='grid' (cluster/grid.py) is not ported yet; use "
-            "'dense' or 'dense_chunked' (ROADMAP queue 1, item 10)")
-    if noise_engine == "dense_chunked":
+        if gmetric is None:
+            raise ValueError(f"metric {metric!r} has no grid form; use "
+                             "noise_engine='dense'")
+        re = dbscan_grid(noise_coords, sel_valid, eps, min_pts, gmetric,
+                         cf=cf_seed, cell_cap=noise_cell_cap)
+        grid_overflow = re["overflow"]
+    elif noise_engine == "dense_chunked":
         re = dbscan_dense_chunked(noise_coords, sel_valid, eps, min_pts,
                                   metric, cf=cf_seed)
     elif noise_engine == "dense":
@@ -152,7 +165,8 @@ def merge_blocks(block_labels, block_valid, block_coords, point_index,
         "label": label,
         "n_kept": n_kept,
         "n_total": n_total,
-        "noise_overflow": torch.clamp_min(n_noise - noise_capacity, 0),
+        "noise_overflow": torch.clamp_min(n_noise - noise_capacity, 0)
+        + grid_overflow,
     }
 
 

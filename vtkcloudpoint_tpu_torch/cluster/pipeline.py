@@ -21,6 +21,7 @@ from .blocks import (assign_blocks_reference, gather_blocks,
                      partition_gather_sorted)
 from .dbscan import dbscan_blocks_dispatch, dbscan_padded
 from .fusion import merge_blocks, merge_centroid_clusters
+from .halo_fusion import apply_halo_merge, halo_merge_labels
 
 
 class ClusterResult(NamedTuple):
@@ -41,18 +42,17 @@ def cluster_scan(xyz, motor, valid, cfg: EngineConfig = EngineConfig(), *,
                  quirks: bool = True, noise_capacity: int = 2048,
                  max_clusters: int = 1024, cluster_capacity: int = 1024,
                  max_hull: int = 64, centroid_merge: bool = False,
-                 halo_merge: bool = False, backend: str = "auto"):
+                 halo_merge: bool = False, halo_cap: int = 64,
+                 backend: str = "auto"):
     """Cluster one scan. Returns ClusterResult.
 
     mode "reference" = the reference grid partition, "balanced" = Morton
     equal-count blocks. All capacities are fixed; the overflow counters
-    report any truncation. ``halo_merge=True`` (the cross-block union-find)
-    is not ported yet and raises.
+    report any truncation. ``halo_merge=True`` runs the cross-block halo
+    union-find (cluster/halo_fusion.py, ``halo_cap`` boundary points per
+    block) after the reference-style fusion: a beyond-reference merge of
+    clusters split across blocks.
     """
-    if halo_merge:
-        raise NotImplementedError(
-            "halo_merge (cluster/halo_fusion.py) is not ported yet "
-            "(ROADMAP queue 1, item 11)")
     n = xyz.shape[0]
     cc = cfg.cluster
     coords = coords_for_metric(xyz, motor, cc.metric)
@@ -79,6 +79,15 @@ def cluster_scan(xyz, motor, valid, cfg: EngineConfig = EngineConfig(), *,
         quirks=quirks, noise_capacity=noise_capacity)
     label = fused["label"]
     n_clusters = fused["n_total"]
+
+    if halo_merge:
+        block_glabels = torch.where(
+            point_index >= 0, label[point_index.clamp(0, n - 1).long()], 0)
+        hm = halo_merge_labels(block_coords, block_valid, block_glabels,
+                               db["core"], n_clusters, cc.eps, cc.metric,
+                               halo_cap=halo_cap, max_ids=max_clusters)
+        label = apply_halo_merge(label, hm["remap"])
+        n_clusters = hm["n_after"]
 
     stats = cluster_stats(xyz, motor, label, valid, max_clusters)
     if centroid_merge:

@@ -31,11 +31,14 @@ from vtkcloudpoint_tpu.config import EngineConfig
 from vtkcloudpoint_tpu.io import loaders
 from vtkcloudpoint_tpu.viz import vtkio
 
+from .cluster.grid import dbscan_grid, grid_metric
 from .cluster.pipeline import ClusterResult, cluster_scan, reject_clusters
 from .data.convert import distance_window
 from .data.pointbatch import PointBatch, _host
 from .device import resolve_backend
 from .io.ingest import import_scan_arrays, import_scan_folder
+from .ops.metrics import coords_for_metric
+from .ops.segment import cluster_stats
 from .register.coarse import auto_rescale_centers, rescale_region_truth
 from .register.icp import ICPResult, icp, icp_multistart, icp_ransac
 from .register.matching import assign_matches, registration_rmse
@@ -113,15 +116,28 @@ class Engine:
 
     def cluster_grid(self, batch: PointBatch, cell_cap: int = 64,
                      max_clusters: int = 4096):
-        raise NotImplementedError(
-            "Engine.cluster_grid needs the grid engine (cluster/grid.py), "
-            "not ported yet: ROADMAP queue 1, 'Grid engines (item 10)'")
+        """Tier-3 global path: grid-hash DBSCAN over the whole scan (no
+        blocks) + centroids. Equal to plain reference DBSCAN while the
+        returned overflow is 0. signed_sum_xy has no grid form: motor L1
+        serves it, as in the JAX package. Returns (dbscan_grid's dict,
+        cluster_stats' dict)."""
+        metric = self.cfg.cluster.metric
+        coords = coords_for_metric(batch.xyz, batch.motor, metric)
+        gm = grid_metric(metric, coords.shape[-1])
+        if gm is None:
+            coords, gm = batch.motor, "l1_motor"
+        out = dbscan_grid(coords.contiguous(), batch.valid,
+                          self.cfg.cluster.eps, self.cfg.cluster.min_pts, gm,
+                          cell_cap=cell_cap)
+        stats = cluster_stats(batch.xyz, batch.motor, out["label"],
+                              batch.valid, max_clusters)
+        return out, stats
 
     def cluster_sharded(self, batch: PointBatch, mesh=None, **kw):
         raise NotImplementedError(
             "Engine.cluster_sharded needs the multi-device modules "
             "(parallel/), not ported yet: ROADMAP queue 1, 'Multi-device, "
-            "last (item 13)'")
+            "last (item 7)'")
 
     def reject_by_radius(self, batch: PointBatch, result: ClusterResult,
                          radius: Optional[float] = None,

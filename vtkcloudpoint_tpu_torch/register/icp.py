@@ -49,15 +49,12 @@ def nn_correspond(query, ref, ref_valid, chunk: int = 2048,
     return idx, d2.to(query.dtype)
 
 
-def icp(source, source_valid, target, target_valid,
-        cfg: ICPConfig = ICPConfig(), r0=None, t0=None, chunk: int = 2048,
-        backend: str = "auto"):
-    """Register source onto target: (R, t) with target ~= R source + t.
-
-    source/target [N, 3]/[M, 3] padded, *_valid masks.
-    Stops when |d - prev_d| < cfg.tol or after cfg.max_iterations, d being
-    the summed squared correspondence distance over valid sources.
-    """
+def icp_loop(source, source_valid, target, target_valid, cfg: ICPConfig,
+             r0, t0, correspond):
+    """The ICP iteration of ``icp`` and ``nn_grid.icp_grid``.
+    ``correspond(p)`` gives (idx, d2, w) for the moved sources p: the
+    nearest target, its squared distance and the bool mask of the sources
+    that enter the solve and the error."""
     dtype, dev = source.dtype, source.device
     w_src = source_valid.to(dtype)
     n_src = torch.clamp_min(w_src.sum(), 1.0)
@@ -81,10 +78,10 @@ def icp(source, source_valid, target, target_valid,
     converged = False
     while not converged and it < cfg.max_iterations:
         p = se3.apply_rigid(r, t, source)
-        idx, d2 = nn_correspond(p, target, target_valid, chunk, backend)
+        idx, d2, w = correspond(p)
         y = target[idx.long()]
-        d = torch.where(source_valid, d2, 0.0).sum()
-        r1, t1 = solve(p, y, weights=w_src)
+        d = torch.where(w, d2, 0.0).sum()
+        r1, t1 = solve(p, y, weights=w.to(dtype))
         r, t = se3.compose(r1, t1, r, t)
         converged = bool(torch.abs(d - prev_d) < cfg.tol)
         prev_d = d
@@ -92,6 +89,23 @@ def icp(source, source_valid, target, target_valid,
     return ICPResult(r=r, t=t, error=d,
                      iterations=torch.tensor(it, dtype=torch.int32),
                      converged=torch.tensor(converged))
+
+
+def icp(source, source_valid, target, target_valid,
+        cfg: ICPConfig = ICPConfig(), r0=None, t0=None, chunk: int = 2048,
+        backend: str = "auto"):
+    """Register source onto target: (R, t) with target ~= R source + t.
+
+    source/target [N, 3]/[M, 3] padded, *_valid masks.
+    Stops when |d - prev_d| < cfg.tol or after cfg.max_iterations, d being
+    the summed squared correspondence distance over valid sources.
+    """
+    def correspond(p):
+        idx, d2 = nn_correspond(p, target, target_valid, chunk, backend)
+        return idx, d2, source_valid
+
+    return icp_loop(source, source_valid, target, target_valid, cfg, r0, t0,
+                    correspond)
 
 
 def _generator(generator):
