@@ -5,7 +5,12 @@
 1. prints the card (nvidia-smi name and power limit);
 2. builds the hand-written kernels from kernels/csrc/ (nvcc, sm_90a);
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes of the tier-2 job below, and times both with CUDA events;
+   shapes of the tier-2 job below (K1 launched twice: its union-find's
+   atomics must not change the result), times both with CUDA events, and
+   gives each kernel its bound (bytes over the HBM rate, or FP32
+   instructions counted from these inputs over the FP32 issue rate), and
+   for K3 the time of torch.cdist + min, the nearest library composition
+   (never called by the port);
 4. runs the tier-2 job of bench.py -- the 500,000-point cloud through
    cluster_scan (Morton partition, per-block DBSCAN, fusion with the noise
    re-cluster, centroids, per-cluster tables, hull + MEC + rectangle in two
@@ -44,9 +49,10 @@
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line
-is printed. Without a CUDA device it exits with 1 at once. Of the JAX
-package it loads only its numpy-only modules (config, io/loaders,
-viz/vtkio), never JAX.
+is printed. Without a CUDA device it exits with 1 at once. It imports
+nothing of JAX and nothing of the JAX package (it checks both at the end):
+the port keeps its own copies of the numpy-only modules (config,
+io/loaders, viz).
 """
 import contextlib
 import hashlib
@@ -177,6 +183,22 @@ RADIUS_L2_EPS = 0.002           # metres; median count ~ a few hundred
 RADIUS_SIGNED_TARGET = 200      # the signed-sum eps puts the median here
 RADIUS_SAMPLE = 16_384
 RADIUS_FULL_PLAIN_S = 20.0
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+# bytes/s, and 67 TFLOP/s in FP32 outside the tensor cores, which counts a
+# fused multiply-add as two operations: an FP32 add, subtract, multiply or
+# compare issues at half that rate. The kernels are built with
+# --fmad=false and issue no FMA, so their bounds count FP32 instructions
+# at FP32_INSTR_PER_S. A kernel's bound is the larger of its bytes (each
+# input read once, each output written once) and its instructions
+# (counted from this run's inputs) over these rates.
+HBM_BYTES_PER_S = 3.35e12
+FP32_INSTR_PER_S = 67e12 / 2
+# FP32 instructions of an l1_motor pair test (K1, K4) a coordinate: D
+# subtractions, D - 1 additions (|.| is an operand modifier) and one
+# comparison, 2 D a pair. The metric is symmetric, so the least work tests
+# each unordered pair of distinct valid points once: nv (nv - 1) / 2 pairs
+L1_PAIR_INSTR = 2
+NN_PAIR_INSTR = 8               # K3: 3 sub, 3 mul, 2 add a pair
 
 
 def require(cond, msg):
@@ -206,6 +228,39 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes, n_instr):
+    """The kernels-line bound fields: the least time the card could take
+    for n_bytes of traffic and n_instr FP32 instructions, and which
+    bounds."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_instr / FP32_INSTR_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_bytes": int(n_bytes), "bound_instr": int(n_instr)}
+
+
+def l1_pair_instr(nv, d):
+    """FP32 instructions of the least l1_motor pair tests of nv valid
+    points (a float64 tensor of counts) at D = d."""
+    return float((nv * (nv - 1) / 2).sum()) * L1_PAIR_INSTR * d
+
+
+def k2_ops(points, valid, max_hull):
+    """K2's FP32 instructions on these tables, from each table's valid
+    count n and hull size h (the plain gift wrap): the wrap, h steps of a
+    pseudo-angle (~7) over n points; the MEC, C(h, 2) pair and C(h, 3)
+    triple circles (~9 and ~25) each tested against h hull points (6); the
+    rectangle, h edges (~8) projecting h points (10)."""
+    from vtkcloudpoint_tpu_torch.ops.geometry import convex_hull
+
+    h = convex_hull(points, valid, max_hull)[1].sum(dim=1).double()
+    n = valid.sum(dim=1).double()
+    pairs, triples = h * (h - 1) / 2, h * (h - 1) * (h - 2) / 6
+    ops = (7 * h * n + pairs * (9 + 6 * h) + triples * (25 + 6 * h)
+           + h * (8 + 10 * h))
+    return float(ops.sum()), float(h.mean())
 
 
 def sha256_of(label) -> str:
@@ -238,23 +293,32 @@ def read_launches():
 
 
 def hold_k1(bc, bv, eps, min_pts, where):
-    """K1 against dbscan_blocks on the same blocks (bit-equal), both timed.
-    Returns the kernels-line fields."""
+    """K1 against dbscan_blocks on the same blocks (bit-equal), launched
+    twice (the union-find's atomics may run in any order: the two results
+    must be equal), both timed. Returns the kernels-line fields."""
     import torch
 
     from vtkcloudpoint_tpu_torch.cluster.dbscan import dbscan_blocks
     from vtkcloudpoint_tpu_torch.kernels import dbscan as k_dbscan
 
     kout = k_dbscan.dbscan_blocks_cuda(bc, bv, eps, min_pts)
+    again = k_dbscan.dbscan_blocks_cuda(bc, bv, eps, min_pts)
     pout = dbscan_blocks(bc, bv, eps, min_pts)
     for key in ("label", "n_clusters", "core"):
+        require(torch.equal(kout[key], again[key]),
+                f"K1 {key} differs between two launches ({where})")
         require(torch.equal(kout[key], pout[key]),
                 f"K1 {key} differs from the plain version ({where})")
+    B, cap, d = bc.shape
+    nv = bv.sum(dim=1).double()
     return {"max_abs_err": float((kout["label"] - pout["label"]).abs().max()),
             "ms": cuda_ms(lambda: k_dbscan.dbscan_blocks_cuda(
                 bc, bv, eps, min_pts), 20),
             "plain_ms": cuda_ms(lambda: dbscan_blocks(bc, bv, eps, min_pts),
                                 3),
+            **bound(B * cap * (4 * d + 1) + B * cap * 5 + B * 4,
+                    l1_pair_instr(nv, d)),
+            "library_ms": None,
             "shape": "B=%d cap=%d D=%d" % tuple(bc.shape)}
 
 
@@ -273,12 +337,16 @@ def hold_k2(points, valid, max_hull, where):
                 f"K2 {name} differs from the plain version ({where}) at "
                 f"clusters {bad.nonzero()[:5].flatten().tolist()}")
         err = max(err, float((a - b).abs().max()))
+    K, cap = points.shape[:2]
+    ops, mean_h = k2_ops(points, valid, max_hull)
     return {"max_abs_err": err,
             "ms": cuda_ms(lambda: k_shapes.shapes_cuda(points, valid,
                                                        max_hull), 20),
             "plain_ms": cuda_ms(lambda: k_shapes.shapes_plain(
                 points, valid, max_hull), 3),
-            "shape": "K=%d cap=%d h=%d" % (*points.shape[:2], max_hull)}
+            **bound(K * cap * 9 + K * 4 + K * 7 * 4, ops),
+            "library_ms": None, "mean_hull": mean_h,
+            "shape": "K=%d cap=%d h=%d" % (K, cap, max_hull)}
 
 
 def hold_k3(query, ref, ref_valid, where):
@@ -286,6 +354,7 @@ def hold_k3(query, ref, ref_valid, where):
     Returns the kernels-line fields."""
     import torch
 
+    from vtkcloudpoint_tpu_torch.kernels import build
     from vtkcloudpoint_tpu_torch.kernels import neighbor as k_nn
 
     args = (query, ref, ref_valid)
@@ -293,10 +362,29 @@ def hold_k3(query, ref, ref_valid, where):
     pidx, pd2 = k_nn.nn_plain(*args, 1024)
     require(torch.equal(kidx, pidx) and torch.equal(kd2, pd2),
             f"K3 differs from the plain version ({where})")
+    n, m = query.shape[0], ref.shape[0]
+    qpb = build.load().vtkcp_nn_queries_per_block()
+    valid_ref = ref[ref_valid].contiguous()
+
+    def library():
+        # the nearest library composition (direct differences); the port
+        # never calls it
+        return torch.cdist(query, valid_ref, compute_mode=(
+            "donot_use_mm_for_euclid_dist")).min(dim=1)
+
+    lib_d = library().values
+    require(torch.allclose(lib_d * lib_d, kd2, rtol=1e-5, atol=1e-12),
+            f"torch.cdist's nearest distances differ from K3's ({where})")
     return {"max_abs_err": float((kd2 - pd2).abs().max()),
             "ms": cuda_ms(lambda: k_nn.nn_cuda(*args), 20),
             "plain_ms": cuda_ms(lambda: k_nn.nn_plain(*args, 1024), 3),
-            "shape": "N=%d M=%d" % (query.shape[0], ref.shape[0])}
+            **bound(n * 12 + m * 13 + n * 8,
+                    n * int(ref_valid.sum()) * NN_PAIR_INSTR),
+            "library_ms": cuda_ms(library, 5),
+            "grid": "%d x %d blocks" % (-(-n // qpb), k_nn.nn_splits(
+                n, m, qpb, k_nn.NN_BLOCKS_PER_SM * k_nn.sm_count(
+                    query.device.index))[0]),
+            "shape": "N=%d M=%d" % (n, m)}
 
 
 def first_icp_query(stats, truth):
@@ -323,7 +411,8 @@ def tier2_inputs(dev):
 
     sys.path.insert(0, ROOT)
     import bench  # numpy only at module level: the cloud generator
-    from vtkcloudpoint_tpu.config import ClusterConfig, EngineConfig, ICPConfig
+    from vtkcloudpoint_tpu_torch.config import (ClusterConfig,
+                                                EngineConfig, ICPConfig)
 
     motor, xyz, truth = bench.synthetic_cloud(N_POINTS)
     return SimpleNamespace(
@@ -363,11 +452,11 @@ def job_stages(inp, backend="auto"):
     after one pass any stage can run again alone on the same inputs."""
     import torch
 
-    from vtkcloudpoint_tpu.config import ICPConfig
     from vtkcloudpoint_tpu_torch.cluster.blocks import (
         partition_gather_sorted)
     from vtkcloudpoint_tpu_torch.cluster.dbscan import dbscan_blocks_dispatch
     from vtkcloudpoint_tpu_torch.cluster.fusion import merge_blocks
+    from vtkcloudpoint_tpu_torch.config import ICPConfig
     from vtkcloudpoint_tpu_torch.ops.geometry import cluster_shapes
     from vtkcloudpoint_tpu_torch.ops.segment import (
         bucket_payload_by_cluster, cluster_stats)
@@ -612,10 +701,15 @@ def radius_phase(inp, s, k1_core, card):
                       "launches": launches, "blocks_equal_k1_core": 16,
                       **report}))
     a = report["a_l1_motor_500k"]
+    coords, valid = cases["a_l1_motor_500k"][:2]
+    n, d = coords.shape
     return {"name": "radius_count", "route": "cuda",
             "source": k_nn.RADIUS_SOURCE, "replaces": k_nn.RADIUS_REPLACES,
             "launches": launches, "max_abs_err": err, "ms": a["ms"],
-            "plain_ms": a["plain_ms"]}
+            "plain_ms": a["plain_ms"],
+            **bound(n * (4 * d + 1) + n * 4,
+                    l1_pair_instr(valid.sum().double(), d)),
+            "library_ms": None, "shape": "N=%d D=%d l1_motor" % (n, d)}
 
 
 def engine_phase(dev, card, kernels):
@@ -880,7 +974,7 @@ def icp_grid_phase(dev, card, kernels):
     import torch
 
     from tools.tier3_inputs import NN, nn_cell, nn_inputs
-    from vtkcloudpoint_tpu.config import ICPConfig
+    from vtkcloudpoint_tpu_torch.config import ICPConfig
     from vtkcloudpoint_tpu_torch.register.icp import icp
     from vtkcloudpoint_tpu_torch.register.nn_grid import (build_nn_grid,
                                                           icp_grid)
@@ -951,8 +1045,8 @@ def icp_grid_phase(dev, card, kernels):
 
     row = hold_k3(src[:NN["fallback_cap"]].contiguous(), tgt, tv,
                   "grid ICP fallback")
-    add_fields(kernels, {"nn_argmin": {**row, "launches": launches[
-        "nn_argmin"]}}, "icp_grid")
+    add_fields(kernels, {"nn_argmin": {
+        **row, "launches": launches["nn_argmin"]}}, "icp_grid")
     print(json.dumps({
         "phase": "icp_grid", "card": card, "m": NN["m"],
         "n_src": NN["n_src"], "cell": cell, "cell_cap": NN["cell_cap"],
@@ -1205,6 +1299,9 @@ def main():
     tier3_phase(dev, card, kernels)
 
     require("jax" not in sys.modules, "jax was imported")
+    jax_package = sorted(m for m in sys.modules if m == "vtkcloudpoint_tpu"
+                         or m.startswith("vtkcloudpoint_tpu."))
+    require(not jax_package, f"the JAX package was imported: {jax_package}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,10 +36,10 @@ def main(argv=None):
 
     sys.path.insert(0, HERE)
     from demo import make_session   # numpy only: the JAX demo's generator
-    from vtkcloudpoint_tpu.config import (ClusterConfig, EngineConfig,
-                                          FilterConfig, ICPConfig)
-    from vtkcloudpoint_tpu.utils.progress import ProgressReporter
+    from vtkcloudpoint_tpu_torch.config import (ClusterConfig, EngineConfig,
+                                                FilterConfig, ICPConfig)
     from vtkcloudpoint_tpu_torch.engine import Engine
+    from vtkcloudpoint_tpu_torch.utils.progress import ProgressReporter
 
     centers_truth = make_session(outdir)
     cfg = EngineConfig(

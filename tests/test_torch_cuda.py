@@ -10,11 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from vtkcloudpoint_tpu.config import ClusterConfig, EngineConfig, ICPConfig
 from vtkcloudpoint_tpu_torch.cluster.dbscan import dbscan_blocks
 from vtkcloudpoint_tpu_torch.cluster.grid import dbscan_grid
 from vtkcloudpoint_tpu_torch.cluster.halo_fusion import grid_union_ids
 from vtkcloudpoint_tpu_torch.cluster.pipeline import cluster_scan
+from vtkcloudpoint_tpu_torch.config import (ClusterConfig, EngineConfig,
+                                            ICPConfig)
 from vtkcloudpoint_tpu_torch.engine import Engine
 from vtkcloudpoint_tpu_torch.kernels import dbscan as k_dbscan
 from vtkcloudpoint_tpu_torch.kernels import neighbor as k_nn
@@ -60,8 +61,6 @@ def _blocks(seed, B, cap, dims, fill=0.8):
 @pytest.mark.parametrize("dims", [2, 3])
 @pytest.mark.parametrize("cap", [128, 1000, 1024])
 def test_dbscan_kernel_matches_plain(gpu, metric, dims, cap):
-    if metric == "signed_sum_xy" and dims == 3:
-        pytest.skip("signed_sum_xy is a 2D metric")
     coords, valid = _blocks(cap + dims, 6, cap, dims)
     c = torch.from_numpy(coords).to(gpu)
     v = torch.from_numpy(valid).to(gpu)
@@ -83,6 +82,62 @@ def test_dbscan_kernel_long_chain(gpu):
     v = torch.ones(1, cap, dtype=torch.bool, device=gpu)
     k = k_dbscan.dbscan_blocks_cuda(c, v, 1.5 / cap, 2)
     p = dbscan_blocks(c, v, 1.5 / cap, 2)
+    for key in ("label", "n_clusters", "core"):
+        assert torch.equal(k[key], p[key]), key
+    assert int(k["n_clusters"][0]) == 1
+
+
+def test_dbscan_kernel_repeats_bit_for_bit(gpu):
+    """Two launches on the same blocks give the same labels, core flags and
+    counts: the union-find's atomics may run in any order, its roots (the
+    least index of each component) do not depend on it."""
+    coords, valid = _blocks(7, 64, 1024, 2, fill=0.95)
+    c = torch.from_numpy(coords).to(gpu)
+    v = torch.from_numpy(valid).to(gpu)
+    a = k_dbscan.dbscan_blocks_cuda(c, v, 0.03, 6)
+    b = k_dbscan.dbscan_blocks_cuda(c, v, 0.03, 6)
+    p = dbscan_blocks(c, v, 0.03, 6)
+    for key in ("label", "n_clusters", "core"):
+        assert torch.equal(a[key], b[key]), key
+        assert torch.equal(a[key], p[key]), key
+
+
+@pytest.mark.parametrize("metric", ["l1_motor", "signed_sum_xy", "l2_xyz"])
+def test_dbscan_kernel_all_core_block(gpu, metric):
+    """Every slot valid and within eps of every other: one cluster, all
+    core, in full blocks and in a block of 1000 slots (not a multiple of
+    32)."""
+    rng = np.random.default_rng(12)
+    for cap in (1024, 1000):
+        coords = rng.uniform(0, 0.01, (3, cap, 2)).astype(np.float32)
+        c = torch.from_numpy(coords).to(gpu)
+        v = torch.ones(3, cap, dtype=torch.bool, device=gpu)
+        eps = 0.05 if metric != "signed_sum_xy" else 0.03
+        k = k_dbscan.dbscan_blocks_cuda(c, v, eps, 8, metric)
+        p = dbscan_blocks(c, v, eps, 8, metric)
+        for key in ("label", "n_clusters", "core"):
+            assert torch.equal(k[key], p[key]), key
+        assert k["n_clusters"].tolist() == [1, 1, 1]
+        assert bool(k["core"].all())
+
+
+@pytest.mark.parametrize("metric,dims", [("l1_motor", 2), ("l2_xyz", 3)])
+def test_dbscan_kernel_shuffled_chain(gpu, metric, dims):
+    """A chain of 1000 points along x in slots of a random order, with
+    border points at both ends: the root is the least slot index anywhere
+    on the chain. The min-label sweeps need more than the plain version's
+    default 64 here; K1 runs to the fixpoint, as the Pallas kernel does
+    (up to cap sweeps), so the plain version gets max_iters=cap."""
+    cap = 1000
+    rng = np.random.default_rng(dims)
+    coords = np.zeros((2, cap, dims), np.float32)
+    coords[:, :, 0] = np.linspace(0, 1, cap, dtype=np.float32)[
+        rng.permutation(cap)]
+    c = torch.from_numpy(coords).to(gpu)
+    v = torch.ones(2, cap, dtype=torch.bool, device=gpu)
+    v[1, ::7] = False
+    k = k_dbscan.dbscan_blocks_cuda(c, v, 1.5 / cap, 3, metric)
+    p = dbscan_blocks(c, v, 1.5 / cap, 3, metric, max_iters=cap)
     for key in ("label", "n_clusters", "core"):
         assert torch.equal(k[key], p[key]), key
     assert int(k["n_clusters"][0]) == 1
@@ -152,6 +207,57 @@ def test_nn_kernel_matches_plain(gpu, n, m):
         pi, pd = k_nn.nn_plain(q, r, ref_valid, chunk=512)
         assert torch.equal(ki, pi)
         assert torch.equal(kd, pd)
+
+
+@pytest.mark.parametrize("n,m", [(1, 5000), (4096, 1), (3, 1)])
+def test_nn_kernel_one_query_or_reference(gpu, n, m):
+    rng = np.random.default_rng(n * 7 + m)
+    q = torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(np.float32)).to(gpu)
+    r = torch.from_numpy(rng.uniform(0, 1, (m, 3)).astype(np.float32)).to(gpu)
+    rv = torch.ones(m, dtype=torch.bool, device=gpu)
+    ki, kd = k_nn.nn_cuda(q, r, rv)
+    pi, pd = k_nn.nn_plain(q, r, rv)
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
+
+
+def test_nn_kernel_ties_across_splits(gpu):
+    """References repeated at both ends of the array, so equal distances
+    fall in different reference splits: the least index wins, as in the
+    plain version; all references invalid gives (0, BIG)."""
+    rng = np.random.default_rng(8)
+    base = rng.uniform(0, 1, (500, 3)).astype(np.float32)
+    ref = np.concatenate([base, rng.uniform(0, 1, (4000, 3)), base,
+                          base]).astype(np.float32)
+    q = torch.from_numpy(base[rng.integers(0, 500, 2000)]
+                         + np.float32(0.25)).to(gpu)
+    r = torch.from_numpy(ref).to(gpu)
+    rv = torch.ones(len(ref), dtype=torch.bool, device=gpu)
+    rv[:100] = False
+    n, m = q.shape[0], r.shape[0]
+    splits, _ = k_nn.nn_splits(n, m, 256, k_nn.NN_BLOCKS_PER_SM
+                               * k_nn.sm_count(q.device.index))
+    assert splits > 1
+    for valid in (rv, torch.zeros_like(rv)):
+        ki, kd = k_nn.nn_cuda(q, r, valid)
+        pi, pd = k_nn.nn_plain(q, r, valid)
+        assert torch.equal(ki, pi) and torch.equal(kd, pd)
+    ki, kd = k_nn.nn_cuda(q, r, torch.zeros_like(rv))
+    assert bool((ki == 0).all()) and bool((kd == k_nn.BIG).all())
+
+
+def test_nn_kernel_grid_icp_fallback_shape(gpu):
+    """N = 4,096 queries against M = 100,000 references (the grid-ICP
+    fallback's shape), 10% of them invalid."""
+    rng = np.random.default_rng(9)
+    ref = (rng.uniform(0, 50, (100_000, 3)) * [1, 1, 0.1]).astype(np.float32)
+    q = ref[rng.integers(0, 100_000, 4096)] + 0.02 * rng.standard_normal(
+        (4096, 3)).astype(np.float32)
+    r = torch.from_numpy(ref).to(gpu)
+    rv = torch.from_numpy(rng.random(100_000) < 0.9).to(gpu)
+    qt = torch.from_numpy(q.astype(np.float32)).to(gpu)
+    ki, kd = k_nn.nn_cuda(qt, r, rv)
+    pi, pd = k_nn.nn_plain(qt, r, rv, chunk=512)
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
 
 
 def test_pipeline_on_card_equals_cpu(gpu):

@@ -108,7 +108,7 @@ def test_import_scan_arrays(dedup, with_pid):
     cfg = ImportConfig(dedup=dedup)
     pid = pid if with_pid else None
     a = ji.import_scan_arrays(motor, dist, cfg, path_id=pid)
-    b = ti.import_scan_arrays(motor, dist, cfg, path_id=pid)
+    b = ti.import_scan_arrays(motor, dist, cfg, path_id=pid, device="cpu")
     _compare_batches(a, b)
     n_in = 300 - 4
     assert int(b.count) == (n_in - 20 if dedup else n_in)
@@ -125,7 +125,8 @@ def test_import_scan_folder(tmp_path, dedup):
                 f.write(f"{m[0]:.6f}\t{m[1]:.6f}\t{d:.6f}\n")
     cfg = ImportConfig(dedup=dedup)
     a, names_a = ji.import_scan_folder(str(tmp_path), cfg, capacity=2048)
-    b, names_b = ti.import_scan_folder(str(tmp_path), cfg, capacity=2048)
+    b, names_b = ti.import_scan_folder(str(tmp_path), cfg, capacity=2048,
+                                       device="cpu")
     assert names_b == names_a == ["scan0", "scan1", "scan2"]
     _compare_batches(a, b)
     assert int(b.path_id[b.valid].max()) == 2
@@ -137,12 +138,13 @@ def test_pointbatch_methods():
     motor = rng.uniform(0, 1, (50, 2))
     lab = rng.integers(0, 5, 50).astype(np.int32)
     a = jpb.PointBatch.from_arrays(xyz, motor=motor, label=lab, capacity=64)
-    b = tpb.PointBatch.from_arrays(xyz, motor=motor, label=lab, capacity=64)
+    b = tpb.PointBatch.from_arrays(xyz, motor=motor, label=lab, capacity=64,
+                                   device="cpu")
     _compare_batches(a, b)
     assert b.capacity == 64 and int(b.count) == 50
     assert b.device == torch.device("cpu")
 
-    ea, eb = jpb.PointBatch.empty(16), tpb.PointBatch.empty(16)
+    ea, eb = jpb.PointBatch.empty(16), tpb.PointBatch.empty(16, "cpu")
     _compare_batches(ea, eb)
     assert eb.xyz.dtype == torch.float32 and eb.mult.dtype == torch.int32
 
@@ -166,4 +168,4 @@ def test_pointbatch_methods():
     cb = tpb.concat([b, b2], capacity=128)
     _compare_batches(ca, cb)
     with pytest.raises(ValueError, match="capacity"):
-        tpb.PointBatch.from_arrays(xyz, capacity=10)
+        tpb.PointBatch.from_arrays(xyz, capacity=10, device="cpu")

@@ -253,7 +253,8 @@ def _marker_folder(path, seed):
 def test_fixed_points_match_jax(tmp_path, collapse):
     names = _marker_folder(tmp_path, 3)
     a = jfp.import_fixed_points(str(tmp_path), collapse_duplicates=collapse)
-    b = tfp.import_fixed_points(str(tmp_path), collapse_duplicates=collapse)
+    b = tfp.import_fixed_points(str(tmp_path), collapse_duplicates=collapse,
+                                device="cpu")
     assert b.names == a.names == names
     for f in ("motor", "rng", "mult", "cluster"):
         np.testing.assert_array_equal(getattr(b, f), getattr(a, f), f)

@@ -1,5 +1,7 @@
 """Guards of the PyTorch port: no JAX import, backend policy, launch counts,
 the argument checks of the kernel wrappers, and state conversion."""
+import dataclasses
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -8,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from vtkcloudpoint_tpu.config import ClusterConfig, EngineConfig, ICPConfig
+from vtkcloudpoint_tpu import config as jax_config
+from vtkcloudpoint_tpu_torch import config as port_config
 from vtkcloudpoint_tpu_torch import convert, device
+from vtkcloudpoint_tpu_torch.config import (ClusterConfig, EngineConfig,
+                                            ICPConfig)
 from vtkcloudpoint_tpu_torch.cluster import dbscan as td
 from vtkcloudpoint_tpu_torch.cluster.pipeline import ClusterResult, cluster_scan
 from vtkcloudpoint_tpu_torch.kernels import build
@@ -52,15 +57,130 @@ def test_slice_modules_present():
         assert (build.CSRC / src).is_file()
 
 
+# what runs the port on the card besides the package itself
+PORT_SCRIPTS = ("chip_smoke", "tools.engine_session", "tools.tier3_inputs",
+                "tools.profile_k1")
+
+
 def test_port_imports_no_jax():
+    """Every port module, chip_smoke.py and the tools it drives load
+    neither JAX nor any module of the JAX package vtkcloudpoint_tpu (the
+    port keeps its own copies of the numpy-only ones)."""
     code = ("import sys\n"
-            + "".join(f"import {m}\n" for m in SLICE_MODULES)
+            + "".join(f"import {m}\n" for m in SLICE_MODULES + list(
+                PORT_SCRIPTS))
             + "bad = sorted(m for m in sys.modules if m == 'jax' or "
-              "m.startswith(('jax.', 'jaxlib')))\n"
+              "m.startswith(('jax.', 'jaxlib')) or m == 'vtkcloudpoint_tpu'"
+              " or m.startswith('vtkcloudpoint_tpu.'))\n"
             + "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def _dataclasses(module):
+    return {name: cls for name, cls in vars(module).items()
+            if dataclasses.is_dataclass(cls) and isinstance(cls, type)
+            and cls.__module__ == module.__name__}
+
+
+def _defaults(cls):
+    out = {}
+    for f in dataclasses.fields(cls):
+        if f.default is not dataclasses.MISSING:
+            value = f.default
+        elif f.default_factory is not dataclasses.MISSING:
+            value = f.default_factory()
+        else:
+            value = dataclasses.MISSING
+        out[f.name] = (_defaults(type(value))
+                       if dataclasses.is_dataclass(value) else value)
+    return out
+
+
+def test_config_copy_matches_jax_package():
+    """The port's config.py is a copy of the JAX package's: the same
+    dataclasses with the same fields, in the same order, and the same
+    defaults (nested ones included)."""
+    jax_classes, port_classes = (_dataclasses(jax_config),
+                                 _dataclasses(port_config))
+    assert sorted(port_classes) == sorted(jax_classes)
+    assert "EngineConfig" in port_classes
+    for name, cls in jax_classes.items():
+        mine = port_classes[name]
+        assert ([f.name for f in dataclasses.fields(mine)]
+                == [f.name for f in dataclasses.fields(cls)]), name
+        assert _defaults(mine) == _defaults(cls), name
+
+
+def _scan_folder(path):
+    rng = np.random.default_rng(3)
+    rows = np.concatenate([rng.uniform(5, 25, (20, 2)),
+                           rng.uniform(40, 45, (20, 1))], 1)
+    with open(path / "a.txt", "w") as f:
+        for r in rows:
+            f.write(f"{r[0]:.6f}\t{r[1]:.6f}\t{r[2]:.6f}\n")
+    return str(path)
+
+
+def _entry_points(folder):
+    """Every entry point that places data on a device, called with the
+    given keyword arguments (none: the default device)."""
+    from vtkcloudpoint_tpu_torch.data.pointbatch import PointBatch
+    from vtkcloudpoint_tpu_torch.engine import Engine
+    from vtkcloudpoint_tpu_torch.io.ingest import (import_scan_arrays,
+                                                   import_scan_folder)
+    from vtkcloudpoint_tpu_torch.register.icp import multistart_rotations
+    from vtkcloudpoint_tpu_torch.workflows.fixed_points import (
+        import_fixed_points)
+
+    motor = np.zeros((4, 2), np.float32)
+    dist = np.full(4, 42.0, np.float32)
+    xyz = np.zeros((4, 3), np.float32)
+    return {
+        "convert.from_numpy": (convert.from_numpy,
+                               lambda **kw: convert.from_numpy(
+                                   {"a": xyz}, **kw)),
+        "import_scan_arrays": (import_scan_arrays,
+                               lambda **kw: import_scan_arrays(
+                                   motor, dist, **kw)),
+        "import_scan_folder": (import_scan_folder,
+                               lambda **kw: import_scan_folder(folder, **kw)),
+        "PointBatch.empty": (PointBatch.empty,
+                             lambda **kw: PointBatch.empty(8, **kw)),
+        "PointBatch.from_arrays": (PointBatch.from_arrays,
+                                   lambda **kw: PointBatch.from_arrays(
+                                       xyz, **kw)),
+        "import_fixed_points": (import_fixed_points,
+                                lambda **kw: import_fixed_points(
+                                    folder, **kw)),
+        "multistart_rotations": (multistart_rotations,
+                                 lambda **kw: multistart_rotations(
+                                     4, torch.Generator().manual_seed(0),
+                                     **kw)),
+        "Engine": (Engine.__init__, lambda **kw: Engine(EngineConfig(), **kw)),
+    }
+
+
+ENTRY_POINTS = ("convert.from_numpy", "import_scan_arrays",
+                "import_scan_folder", "PointBatch.empty",
+                "PointBatch.from_arrays", "import_fixed_points",
+                "multistart_rotations", "Engine")
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
+    """Every entry point that places data defaults to device.DEFAULT_DEVICE
+    ("cuda"). On a host without CUDA that default raises -- it never
+    becomes the CPU quietly -- and device="cpu" runs."""
+    fn, call = _entry_points(_scan_folder(tmp_path))[name]
+    assert device.DEFAULT_DEVICE == "cuda"
+    assert (inspect.signature(fn).parameters["device"].default
+            == device.DEFAULT_DEVICE)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    call(device="cpu")
 
 
 def test_resolve_backend():
@@ -186,7 +306,7 @@ def test_convert_round_trip_keeps_dtypes():
             "b": (np.ones(3, bool), np.float32([1.5, 2.5])),
             "r": ClusterResult(*([np.zeros(2, np.float32)] * 10)),
             "s": 3}
-    t = convert.from_numpy(tree)
+    t = convert.from_numpy(tree, "cpu")
     assert t["a"].dtype == torch.int32 and t["b"][0].dtype == torch.bool
     assert t["b"][1].dtype == torch.float32
     assert isinstance(t["r"], ClusterResult) and t["s"] == 3
@@ -227,3 +347,39 @@ def test_no_not_implemented_left_but_multi_device():
     assert hits == ["cluster/halo_fusion.py", "engine.py"]
     for name in hits:
         assert "item 7" in (PACKAGE / name).read_text(), name
+
+
+@pytest.mark.parametrize("n,m", [(1024, 450), (12_288, 5_120),
+                                 (4_096, 100_000), (1, 5), (300_000, 1_000),
+                                 (3, 10_000_000)])
+def test_nn_splits_cover_m_in_whole_tiles(n, m):
+    """K3's grid on an H100 (132 SMs, 256 queries a block): the splits
+    cover every reference once, hold at least one 128-reference tile,
+    number at most 65,535, and fill 4 blocks an SM where M allows."""
+    target = k_nn.NN_BLOCKS_PER_SM * 132
+    splits, split_len = k_nn.nn_splits(n, m, 256, target)
+    assert split_len >= k_nn.NN_MIN_SPLIT == 128
+    assert (splits - 1) * split_len < m <= splits * split_len
+    assert splits <= 65_535
+    tiles = -(-n // 256)
+    if m >= target * k_nn.NN_MIN_SPLIT:
+        assert tiles * splits >= target
+    if m <= k_nn.NN_MIN_SPLIT:
+        assert splits == 1
+
+
+def test_kernel_bounds_count_unordered_pairs_at_the_issue_rate():
+    """chip_smoke's bound: l1_motor pair tests of nv valid points are
+    nv (nv - 1) / 2 unordered pairs at 2 D FP32 instructions, over the
+    non-FMA issue rate (half the published 67 TFLOP/s)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    nv = torch.tensor([1024.0, 3.0], dtype=torch.float64)
+    instr = chip_smoke.l1_pair_instr(nv, 2)
+    assert instr == (1024 * 1023 // 2 + 3) * 4
+    assert chip_smoke.FP32_INSTR_PER_S == 33.5e12
+    b = chip_smoke.bound(1000, instr)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(instr / 33.5e9)
+    assert chip_smoke.bound(10**9, 1)["bound_by"] == "bytes"

@@ -156,7 +156,7 @@ def test_icp_matches_jax(cfg):
     tv = np.ones(96, bool)
     a = ji.icp(jnp.asarray(src), jnp.asarray(sv), jnp.asarray(tgt),
                jnp.asarray(tv), cfg, backend="jnp")
-    b = to_numpy(ti.icp(*from_numpy((src, sv, tgt, tv)), cfg))
+    b = to_numpy(ti.icp(*from_numpy((src, sv, tgt, tv), "cpu"), cfg))
     np.testing.assert_allclose(b.r, np.asarray(a.r), atol=1e-5)
     np.testing.assert_allclose(b.t, np.asarray(a.t), atol=1e-5)
     assert int(b.iterations) == int(a.iterations)

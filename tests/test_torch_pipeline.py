@@ -38,7 +38,7 @@ def _compare(a, b):
 def _both(xyz, motor, valid, cfg, **kw):
     a = jp.cluster_scan(jnp.asarray(xyz), jnp.asarray(motor),
                         jnp.asarray(valid), cfg, backend="jnp", **kw)
-    b = tp.cluster_scan(*from_numpy((xyz, motor, valid)), cfg, **kw)
+    b = tp.cluster_scan(*from_numpy((xyz, motor, valid), "cpu"), cfg, **kw)
     return a, b
 
 
@@ -90,8 +90,8 @@ def test_bench_cloud_and_icp(mode, quirks):
     icfg = ICPConfig(max_iterations=50)
     ra = jicp(a.center3d, a.count > 0, jnp.asarray(truth), jnp.asarray(tv),
               icfg, backend="jnp")
-    rb = to_numpy(ticp(b.center3d, b.count > 0, *from_numpy((truth, tv)),
-                       icfg))
+    rb = to_numpy(ticp(b.center3d, b.count > 0,
+                       *from_numpy((truth, tv), "cpu"), icfg))
     np.testing.assert_allclose(rb.r, np.asarray(ra.r), atol=1e-5)
     np.testing.assert_allclose(rb.t, np.asarray(ra.t), atol=1e-5)
     assert int(rb.iterations) == int(ra.iterations)
@@ -148,8 +148,8 @@ def test_halo_merge_unifies_split_cluster(halo_cap):
     a, b = _both(xyz, pts, np.ones(n, bool), cfg, halo_merge=True,
                  halo_cap=halo_cap, **kw)
     _compare(a, b)
-    plain = tp.cluster_scan(*from_numpy((xyz, pts, np.ones(n, bool))), cfg,
-                            **kw)
+    plain = tp.cluster_scan(
+        *from_numpy((xyz, pts, np.ones(n, bool)), "cpu"), cfg, **kw)
     # 8 halo slots per block hold too few boundary points to link a piece
     if halo_cap == 64:
         assert int(b.n_clusters) < int(plain.n_clusters)

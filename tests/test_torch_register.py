@@ -231,7 +231,8 @@ def test_multistart_fed_jax_rotations(k):
     np.testing.assert_allclose(b.r.numpy(), np.asarray(a.r), atol=1e-5)
     np.testing.assert_allclose(b.t.numpy(), np.asarray(a.t), atol=1e-5)
     # the port's own z-spins equal JAX's; the random ones are rotations
-    mine = ticp.multistart_rotations(k, torch.Generator().manual_seed(1))
+    mine = ticp.multistart_rotations(k, torch.Generator().manual_seed(1),
+                                     device="cpu")
     n_z = (k + 1) // 2
     np.testing.assert_allclose(mine[:n_z].numpy(), r0s[:n_z], atol=1e-6)
     eye = torch.eye(3).expand(k, 3, 3)

@@ -38,15 +38,18 @@ SESSION = dict(
 )
 
 
-def engine_config(**icp):
+def engine_config(config=None, **icp):
     """EngineConfig of the session: eps 0.004 motor-L1, min_pts 8, block
-    capacity 1024; ``icp`` overrides ICPConfig fields."""
-    from vtkcloudpoint_tpu.config import ClusterConfig, EngineConfig, \
-        ICPConfig
+    capacity 1024; ``icp`` overrides ICPConfig fields. ``config`` is the
+    module of the dataclasses: the port's (the default) or the JAX
+    package's ``vtkcloudpoint_tpu.config``, which holds the same fields."""
+    if config is None:
+        from vtkcloudpoint_tpu_torch import config
 
-    return EngineConfig(cluster=ClusterConfig(eps=0.004, min_pts=8,
-                                              block_capacity=1024),
-                        icp=ICPConfig(**icp))
+    return config.EngineConfig(
+        cluster=config.ClusterConfig(eps=0.004, min_pts=8,
+                                     block_capacity=1024),
+        icp=config.ICPConfig(**icp))
 
 
 def forward_xyz(motor, rng):

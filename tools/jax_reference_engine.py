@@ -28,11 +28,12 @@ def main():
     jax.config.update("jax_enable_x64", False)
 
     from tools.engine_session import SESSION, engine_config, engine_session
+    from vtkcloudpoint_tpu import config
     from vtkcloudpoint_tpu.engine import Engine
 
     t0 = time.perf_counter()
     motor, rng, truth = engine_session()
-    eng = Engine(engine_config())
+    eng = Engine(engine_config(config))
     batch = eng.import_arrays(motor, rng, capacity=SESSION["capacity"])
     n_imported = int(batch.count)
     batch = eng.filter_by_distance(batch, SESSION["dis_min"],

@@ -96,10 +96,11 @@ def phase_a():
 def phase_b():
     from tools.engine_session import SESSION, engine_config, engine_session
     from tools.tier3_inputs import GRID_ENGINE
+    from vtkcloudpoint_tpu import config
     from vtkcloudpoint_tpu.engine import Engine
 
     motor, rng, _ = engine_session()
-    eng = Engine(engine_config())
+    eng = Engine(engine_config(config))
     batch = eng.import_arrays(motor, rng, capacity=SESSION["capacity"])
     batch = eng.filter_by_distance(batch, SESSION["dis_min"],
                                    SESSION["dis_max"])

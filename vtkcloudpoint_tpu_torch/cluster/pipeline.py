@@ -12,8 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from vtkcloudpoint_tpu.config import EngineConfig
-
+from ..config import EngineConfig
 from ..ops.geometry import cluster_shapes
 from ..ops.metrics import coords_for_metric
 from ..ops.segment import bucket_payload_by_cluster, cluster_stats

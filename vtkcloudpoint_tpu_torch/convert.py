@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import DEFAULT_DEVICE, resolve_device
+
 
 def _map(fn, tree):
     if isinstance(tree, dict):
@@ -21,9 +23,10 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def from_numpy(tree, device="cpu"):
+def from_numpy(tree, device=DEFAULT_DEVICE):
     """Every array-like leaf (anything with ``__array__``) -> a tensor of
-    the same dtype on ``device``."""
+    the same dtype on ``device`` (default the card)."""
+    device = resolve_device(device)
 
     def leaf(x):
         if isinstance(x, torch.Tensor):

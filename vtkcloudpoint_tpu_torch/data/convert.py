@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from vtkcloudpoint_tpu.config import ImportConfig
+from ..config import ImportConfig
 
 _DIR_SIGN = {1: 1.0, 2: 1.0, 3: -1.0, 4: -1.0}
 _DIR_PICKS_TMPY = {1: True, 2: False, 3: True, 4: False}

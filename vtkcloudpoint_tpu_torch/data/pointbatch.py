@@ -13,6 +13,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
+
 
 def _host(a):
     """A tensor or array-like as a numpy array."""
@@ -57,8 +59,10 @@ class PointBatch:
         return self.valid.sum(dim=-1, dtype=torch.int32)
 
     @staticmethod
-    def empty(capacity: int, device="cpu",
+    def empty(capacity: int, device=DEFAULT_DEVICE,
               dtype=torch.float32) -> "PointBatch":
+        device = resolve_device(device)
+
         def full(shape, fill, dt):
             return torch.full(shape, fill, dtype=dt, device=device)
 
@@ -75,9 +79,11 @@ class PointBatch:
     @staticmethod
     def from_arrays(xyz, motor=None, rng=None, label=None, mult=None,
                     valid=None, path_id=None, capacity: Optional[int] = None,
-                    device="cpu", dtype=torch.float32) -> "PointBatch":
+                    device=DEFAULT_DEVICE,
+                    dtype=torch.float32) -> "PointBatch":
         """Build a PointBatch from host arrays (or tensors), padding to
-        ``capacity``, on ``device``."""
+        ``capacity``, on ``device`` (default the card)."""
+        device = resolve_device(device)
         xyz = _host(xyz)
         n = xyz.shape[0]
         cap = capacity if capacity is not None else n

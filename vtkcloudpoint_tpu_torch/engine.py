@@ -3,9 +3,9 @@
 One object that carries the config and a device and walks the workflow:
 import -> filter -> cluster -> reject -> coarse align -> ICP -> match ->
 export. Every step delegates to the port's modules; exports go through the
-JAX package's numpy-only loaders, vtkio and snapshot.
+port's copies of the numpy-only loaders, vtkio and snapshot.
 
-    eng = Engine(EngineConfig(), device="cuda")
+    eng = Engine(EngineConfig())          # on the card; device="cpu" too
     batch, names = eng.import_folder("scans/")
     batch = eng.filter_by_distance(batch, 2.0, 300.0)
     result = eng.cluster(batch)
@@ -27,21 +27,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vtkcloudpoint_tpu.config import EngineConfig
-from vtkcloudpoint_tpu.io import loaders
-from vtkcloudpoint_tpu.viz import vtkio
-
 from .cluster.grid import dbscan_grid, grid_metric
 from .cluster.pipeline import ClusterResult, cluster_scan, reject_clusters
 from .data.convert import distance_window
+from .config import EngineConfig
 from .data.pointbatch import PointBatch, _host
-from .device import resolve_backend
+from .device import DEFAULT_DEVICE, resolve_backend, resolve_device
+from .io import loaders
 from .io.ingest import import_scan_arrays, import_scan_folder
 from .ops.metrics import coords_for_metric
 from .ops.segment import cluster_stats
 from .register.coarse import auto_rescale_centers, rescale_region_truth
 from .register.icp import ICPResult, icp, icp_multistart, icp_ransac
 from .register.matching import assign_matches, registration_rmse
+from .viz import vtkio
 
 
 def _live_clusters(result: ClusterResult):
@@ -52,9 +51,10 @@ def _live_clusters(result: ClusterResult):
 
 
 class Engine:
-    def __init__(self, cfg: EngineConfig = EngineConfig(), *, device):
+    def __init__(self, cfg: EngineConfig = EngineConfig(), *,
+                 device=DEFAULT_DEVICE):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.backend = resolve_backend(cfg.backend, self.device)
         self.export_bit = 4  # decimal places for exports; import sniffs it
 
@@ -239,7 +239,7 @@ class Engine:
                    point_size: int = 1):
         """Headless scene snapshot to PNG + legend sidecar (Tools.Screen,
         Show2DPoints, legend panel). view: "xy" or "motor"."""
-        from vtkcloudpoint_tpu.viz.snapshot import snapshot_clusters
+        from .viz.snapshot import snapshot_clusters
 
         labels = (_host(result.label) if result is not None
                   else np.zeros(batch.capacity, np.int32))

@@ -2,9 +2,9 @@
 (port of vtkcloudpoint_tpu.io.ingest).
 
 The AddFolder import path (FrmMain.cs:916-1134, typpe 1/2): parse files with
-the shared loaders, range-gate (Distance == 0 or > 1000 dropped) and convert
+the port's loaders, range-gate (Distance == 0 or > 1000 dropped) and convert
 motor angles to XYZ on the device in the batch dtype, remove exact
-duplicates with the shared ``loaders.dedup_exact`` (first-occurrence order),
+duplicates with ``loaders.dedup_exact`` (first-occurrence order),
 and pad to a multiple of 1024.
 """
 from __future__ import annotations
@@ -14,11 +14,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vtkcloudpoint_tpu.config import ImportConfig
-from vtkcloudpoint_tpu.io.loaders import dedup_exact, load_folder
-
+from ..config import ImportConfig
 from ..data.convert import motor_to_xyz, range_gate
 from ..data.pointbatch import PointBatch, _host
+from ..device import DEFAULT_DEVICE, resolve_device
+from .loaders import dedup_exact, load_folder
 
 
 def _round_capacity(n: int) -> int:
@@ -27,12 +27,15 @@ def _round_capacity(n: int) -> int:
 
 
 def import_scan_arrays(motor, rng, cfg: ImportConfig = ImportConfig(),
-                       capacity: Optional[int] = None, device="cpu",
+                       capacity: Optional[int] = None,
+                       device=DEFAULT_DEVICE,
                        dtype=torch.float32, path_id=None) -> PointBatch:
-    """PointBatch on ``device`` from raw (motor [N, 2], distance [N]).
+    """PointBatch on ``device`` (default the card) from raw (motor [N, 2],
+    distance [N]).
 
     ``path_id`` (each point's source-file index) follows the points through
     the range gate and the dedup, which keeps the first occurrence's file."""
+    device = resolve_device(device)
     motor_t = torch.as_tensor(_host(motor)).to(device=device, dtype=dtype)
     rng_t = torch.as_tensor(_host(rng)).to(device=device, dtype=dtype)
     keep = range_gate(rng_t, cfg)
@@ -56,10 +59,12 @@ def import_scan_arrays(motor, rng, cfg: ImportConfig = ImportConfig(),
 
 def import_scan_folder(folder: str, cfg: ImportConfig = ImportConfig(),
                        pattern: str = "*.txt",
-                       capacity: Optional[int] = None, device="cpu",
+                       capacity: Optional[int] = None,
+                       device=DEFAULT_DEVICE,
                        dtype=torch.float32):
     """Folder import (reference typpe 1/2). Returns (PointBatch with
     per-point path_id, names indexed by path_id)."""
+    device = resolve_device(device)
     raw, pid, names = load_folder(folder, pattern)
     batch = import_scan_arrays(raw[:, :2], raw[:, 2], cfg, capacity, device,
                                dtype, path_id=pid)

@@ -38,9 +38,10 @@ _F = ctypes.c_float
 # C signatures: every function returns its cudaError_t as int
 SIGNATURES = {
     "vtkcp_dbscan_blocks": (_P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),
-    "vtkcp_dbscan_smem_bytes": (_I, _I),
+    "vtkcp_dbscan_smem_bytes": (_I, _I, _I),
     "vtkcp_cluster_shapes": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P),
-    "vtkcp_nn_argmin": (_P, _P, _P, _I, _I, _P, _P, _P),
+    "vtkcp_nn_argmin": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "vtkcp_nn_queries_per_block": (),
     "vtkcp_radius_count": (_P, _P, _I, _I, _I, _F, _P, _P),
 }
 
@@ -59,40 +60,46 @@ def _nvcc() -> str:
     return found
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for name in SOURCES:
+def _digest(sources, flags) -> str:
+    h = hashlib.sha256(" ".join(flags + LINK_FLAGS).encode())
+    for name in sources:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libvtkcp_kernels_{_digest()}.so"
+def library_path(sources=SOURCES, defines=(),
+                 stem: str = "libvtkcp_kernels") -> Path:
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    return BUILD_DIR / f"{stem}_{_digest(sources, flags)}.so"
 
 
-def build() -> Path:
-    """Compile the library unless a build of these exact sources exists.
-    Records the build's seconds and nvcc's -Xptxas=-v report in
-    ``build_info``."""
-    path = library_path()
+def build(sources=SOURCES, defines=(),
+          stem: str = "libvtkcp_kernels") -> Path:
+    """Compile ``sources`` (default: every kernel) with the macros
+    ``defines`` into one library, unless a build of these exact sources and
+    flags exists. The kernel library has no macro; a diagnostic build
+    (tools/profile_k1.py) names its own. Records the build's seconds and
+    nvcc's -Xptxas=-v report in ``build_info``."""
+    path = library_path(sources, defines, stem)
     if path.exists():
         build_info.setdefault("seconds", 0.0)
         build_info.setdefault("cached", True)
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     tag = f"{path.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in sources]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj),
                                str(CSRC / src)],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(SOURCES, objs)]
+             for src, obj in zip(sources, objs)]
     logs = [p.communicate()[0] for p in procs]
     report = "".join(logs)
-    for src, p, log in zip(SOURCES, procs, logs):
+    for src, p, log in zip(sources, procs, logs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):\n"
                                f"{log}")
@@ -111,18 +118,24 @@ def build() -> Path:
     return path
 
 
+def open_library(path, signatures=SIGNATURES) -> ctypes.CDLL:
+    """Load a built library with ctypes and declare ``signatures`` (the
+    functions it exports, each returning its cudaError_t as int)."""
+    lib = ctypes.CDLL(str(path))
+    for name, args in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
+    lib.vtkcp_error_string.argtypes = [ctypes.c_int]
+    lib.vtkcp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use and loaded once per process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, args in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(args)
-            fn.restype = ctypes.c_int
-        lib.vtkcp_error_string.argtypes = [ctypes.c_int]
-        lib.vtkcp_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = open_library(build())
     return _lib
 
 

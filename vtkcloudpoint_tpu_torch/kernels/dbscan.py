@@ -29,6 +29,16 @@ def dbscan_blocks_cuda(coords, valid, eps: float, min_pts: int,
     i32[B], core bool[B, cap]. Every block runs to its fixpoint. Launches
     on the current stream and does not synchronise."""
     global launches
+    out = launch(coords, valid, eps, min_pts, metric)
+    launches += 1
+    return out
+
+
+def launch(coords, valid, eps: float, min_pts: int,
+           metric: str = "l1_motor", lib=None):
+    """Check the arguments and launch ``vtkcp_dbscan_blocks`` of ``lib``:
+    the kernel library (None), or the diagnostic build of
+    tools/profile_k1.py."""
     build.require_cuda("dbscan_blocks_cuda", coords=coords, valid=valid)
     if coords.dtype != torch.float32 or valid.dtype != torch.bool:
         raise ValueError("dbscan_blocks_cuda: coords must be float32 and "
@@ -41,8 +51,8 @@ def dbscan_blocks_cuda(coords, valid, eps: float, min_pts: int,
         raise ValueError("dbscan_blocks_cuda: valid must be [B, cap]")
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}")
-    lib = build.load()
-    smem = lib.vtkcp_dbscan_smem_bytes(cap, d)
+    lib = lib if lib is not None else build.load()
+    smem = lib.vtkcp_dbscan_smem_bytes(cap, d, METRICS[metric])
     if smem > MAX_SMEM:
         raise ValueError(f"dbscan_blocks_cuda: cap {cap} needs {smem} bytes "
                          f"of shared memory, more than {MAX_SMEM}")
@@ -58,5 +68,4 @@ def dbscan_blocks_cuda(coords, valid, eps: float, min_pts: int,
             thr, int(min_pts), label.data_ptr(), n_clusters.data_ptr(),
             core.data_ptr(), build.stream_handle(coords.device))
     build.check(err, "vtkcp_dbscan_blocks")
-    launches += 1
     return {"label": label, "n_clusters": n_clusters, "core": core}

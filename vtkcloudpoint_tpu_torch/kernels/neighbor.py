@@ -10,9 +10,13 @@ K4, radius neighbour count (csrc/radius.cu), replaces radius_count_pallas
 (neighbor.py:86). ``radius_count_plain`` is its plain PyTorch version, the
 counterpart of radius_count_jnp; ``radius_count`` dispatches between them.
 
-Each kernel keeps its own launch counter (``launches``, ``radius_launches``).
+Each kernel keeps its own launch counter (``launches``, ``radius_launches``):
+one a wrapper call (a K3 call launches three CUDA kernels: fill, search,
+unpack).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -25,6 +29,10 @@ REPLACES = "vtkcloudpoint_tpu/ops/pallas/neighbor.py:183"
 RADIUS_SOURCE = "vtkcloudpoint_tpu_torch/kernels/csrc/radius.cu"
 RADIUS_REPLACES = "vtkcloudpoint_tpu/ops/pallas/neighbor.py:86"
 BIG = 1e30
+NN_BLOCKS_PER_SM = 4
+# references a K3 split holds at least: one full shared-memory tile of the
+# search kernel (tools/profile_k3.py times others)
+NN_MIN_SPLIT = 128
 RADIUS_METRICS = {"l1_motor": 0, "signed_sum_xy": 1, "l2_xyz": 2,
                   "l2_xy": 2}
 
@@ -53,6 +61,23 @@ def nn_plain(query, ref, ref_valid, chunk: int = 2048):
     return torch.cat(idx), torch.cat(d2)
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def nn_splits(n: int, m: int, queries_per_block: int, target_blocks: int):
+    """K3's grid: (reference splits, split length) for ``n`` queries in
+    tiles of ``queries_per_block`` and ``m`` references, so that the grid
+    holds at least ``target_blocks`` blocks where splits of NN_MIN_SPLIT
+    references allow (and at most 65,535 splits)."""
+    tiles = max(1, -(-n // queries_per_block))
+    want = max(1, -(-target_blocks // tiles))
+    split_len = max(NN_MIN_SPLIT, m // want, -(-m // 65535), 1)
+    return max(1, -(-m // split_len)), split_len
+
+
 def nn_cuda(query, ref, ref_valid):
     """Launch K3 on CUDA tensors query f32 [N, 3], ref f32 [M, 3] and
     ref_valid bool [M]: (idx i32[N], d2 f32[N]). Launches on the current
@@ -72,13 +97,19 @@ def nn_cuda(query, ref, ref_valid):
     if n >= 2**31 or m >= 2**31:
         raise ValueError("nn_cuda: N and M must fit in int32")
     lib = build.load()
+    splits, split_len = nn_splits(
+        n, m, lib.vtkcp_nn_queries_per_block(),
+        NN_BLOCKS_PER_SM * sm_count(query.device.index))
+    # merge keys (float bits of d2) << 32 | idx, filled and unpacked on the
+    # card
+    keys = torch.empty(n, dtype=torch.int64, device=query.device)
     idx = torch.empty(n, dtype=torch.int32, device=query.device)
     d2 = torch.empty(n, dtype=torch.float32, device=query.device)
     with torch.cuda.device(query.device):
         err = lib.vtkcp_nn_argmin(
             query.data_ptr(), ref.data_ptr(), ref_valid.data_ptr(), n, m,
-            idx.data_ptr(), d2.data_ptr(),
-            build.stream_handle(query.device))
+            splits, split_len, keys.data_ptr(), idx.data_ptr(),
+            d2.data_ptr(), build.stream_handle(query.device))
     build.check(err, "vtkcp_nn_argmin")
     launches += 1
     return idx, d2

@@ -23,9 +23,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from vtkcloudpoint_tpu.config import ICPConfig
-
-from ..device import resolve_backend
+from ..config import ICPConfig
+from ..device import DEFAULT_DEVICE, resolve_backend, resolve_device
 from ..kernels.neighbor import nn_cuda, nn_plain
 from ..ops import se3
 
@@ -186,10 +185,11 @@ def icp_ransac(source, source_valid, target, target_valid,
 
 
 def multistart_rotations(k: int, generator=None, dtype=torch.float32,
-                         device="cpu"):
-    """The k initial rotations of icp_multistart, [k, 3, 3]: (k + 1) // 2
-    uniform z-spins (deterministic), then random rotations from the
-    generator."""
+                         device=DEFAULT_DEVICE):
+    """The k initial rotations of icp_multistart, [k, 3, 3] on ``device``
+    (default the card): (k + 1) // 2 uniform z-spins (deterministic), then
+    random rotations from the generator."""
+    device = resolve_device(device)
     g = _generator(generator)
     n_z = (k + 1) // 2
     thetas = torch.arange(n_z, dtype=dtype) * (2.0 * math.pi / max(n_z, 1))

@@ -25,9 +25,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from vtkcloudpoint_tpu.config import ICPConfig
-
 from ..cluster.grid import reciprocal32
+from ..config import ICPConfig
 from .icp import icp_loop, nn_correspond
 
 _INT_MAX = 2**31 - 1

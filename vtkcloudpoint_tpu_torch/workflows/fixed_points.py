@@ -16,11 +16,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from vtkcloudpoint_tpu.config import ImportConfig
-from vtkcloudpoint_tpu.io.loaders import dedup_exact, load_folder, \
-    read_text_lines
-
+from ..config import ImportConfig
 from ..data.convert import motor_to_xyz, range_gate
+from ..device import DEFAULT_DEVICE, resolve_device
+from ..io.loaders import dedup_exact, load_folder, read_text_lines
 
 
 class FixedPointSet(NamedTuple):
@@ -34,8 +33,10 @@ class FixedPointSet(NamedTuple):
 
 def import_fixed_points(folder: str, cfg: ImportConfig = ImportConfig(),
                         collapse_duplicates: bool = True,
-                        device="cpu") -> FixedPointSet:
-    """typpe 3 (collapse duplicates, count them) / typpe 4 (keep all)."""
+                        device=DEFAULT_DEVICE) -> FixedPointSet:
+    """typpe 3 (collapse duplicates, count them) / typpe 4 (keep all); the
+    range gate and the conversion run on ``device`` (default the card)."""
+    device = resolve_device(device)
     raw, pid, names = load_folder(folder)
     rng_t = torch.from_numpy(raw[:, 2].astype(np.float32)).to(device)
     keep = range_gate(rng_t, cfg).cpu().numpy()
