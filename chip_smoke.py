@@ -10,7 +10,7 @@
    gives each kernel its bound (bytes over the HBM rate, or FP32
    instructions counted from these inputs over the FP32 issue rate), and
    for K3 the time of torch.cdist + min, the nearest library composition
-   (never called by the port);
+   (never called by the port); K2 also at max_hull 64 on the same tables;
 4. runs the tier-2 job of bench.py -- the 500,000-point cloud through
    cluster_scan (Morton partition, per-block DBSCAN, fusion with the noise
    re-cluster, centroids, per-cluster tables, hull + MEC + rectangle in two
@@ -23,7 +23,9 @@
 6. holds K4, the radius count, against its plain version on the card --
    l1_motor on the 500k cloud's motor coordinates, per block against K1's
    core flags, l2_xyz and signed_sum_xy on the Engine session's XYZ --
-   through its own entry point (kernels.neighbor.radius_count);
+   through its own entry point (kernels.neighbor.radius_count), launched
+   twice (its atomics must not change the counts), and times its
+   yardstick, (torch.cdist(q, ref, p=1) <= eps).sum(1) in chunks;
 7. runs the Engine session of tools/engine_session.py (500k points:
    import, distance filter, cluster with max_hull 64, radius rejection,
    registration single-start, multi-start and RANSAC, match, export)
@@ -183,6 +185,7 @@ RADIUS_L2_EPS = 0.002           # metres; median count ~ a few hundred
 RADIUS_SIGNED_TARGET = 200      # the signed-sum eps puts the median here
 RADIUS_SAMPLE = 16_384
 RADIUS_FULL_PLAIN_S = 20.0
+RADIUS_LIB_CHUNK = 4096         # K4's yardstick: [4096, N] f32 distances
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 # bytes/s, and 67 TFLOP/s in FP32 outside the tensor cores, which counts a
 # fused multiply-add as two operations: an FP32 add, subtract, multiply or
@@ -325,6 +328,7 @@ def hold_k1(bc, bv, eps, min_pts, where):
 def hold_k2(points, valid, max_hull, where):
     """K2 against shapes_plain on the same tables (rtol SHAPES_RTOL), both
     timed. Returns the kernels-line fields."""
+    from vtkcloudpoint_tpu_torch.kernels import build
     from vtkcloudpoint_tpu_torch.kernels import shapes as k_shapes
 
     kout = k_shapes.shapes_cuda(points, valid, max_hull)
@@ -346,6 +350,8 @@ def hold_k2(points, valid, max_hull, where):
                 points, valid, max_hull), 3),
             **bound(K * cap * 9 + K * 4 + K * 7 * 4, ops),
             "library_ms": None, "mean_hull": mean_h,
+            "warps_a_cluster": build.load().vtkcp_shapes_group(K, cap,
+                                                               max_hull),
             "shape": "K=%d cap=%d h=%d" % (K, cap, max_hull)}
 
 
@@ -656,6 +662,11 @@ def radius_phase(inp, s, k1_core, card):
         require(torch.equal(cnt >= MIN_PTS, k1_core[b]),
                 f"K4 counts of block {b} disagree with K1's core flags")
 
+    again = k_nn.radius_count(*cases["a_l1_motor_500k"])
+    require(torch.equal(again, got["a_l1_motor_500k"]),
+            "K4 differs between two launches (its atomics may run in any "
+            "order; their sums may not)")
+
     report, err = {}, 0.0
     for name, (coords, valid, eps, metric) in cases.items():
         n = coords.shape[0]
@@ -697,19 +708,53 @@ def radius_phase(inp, s, k1_core, card):
             "ms": cuda_ms(lambda: k_nn.radius_count_cuda(coords, valid, eps,
                                                          metric), 3),
             "plain_ms": plain_ms, "plain_rows": int(plain.numel())}
+    a = report["a_l1_motor_500k"]
+    coords, valid, eps = cases["a_l1_motor_500k"][:3]
+    n, d = coords.shape
+    lib = radius_library(coords, valid, eps, got["a_l1_motor_500k"])
     print(json.dumps({"phase": "radius_count", "card": card,
                       "launches": launches, "blocks_equal_k1_core": 16,
-                      **report}))
-    a = report["a_l1_motor_500k"]
-    coords, valid = cases["a_l1_motor_500k"][:2]
-    n, d = coords.shape
+                      "two_launches_equal": True, **report,
+                      "library": lib}))
     return {"name": "radius_count", "route": "cuda",
             "source": k_nn.RADIUS_SOURCE, "replaces": k_nn.RADIUS_REPLACES,
             "launches": launches, "max_abs_err": err, "ms": a["ms"],
             "plain_ms": a["plain_ms"],
             **bound(n * (4 * d + 1) + n * 4,
                     l1_pair_instr(valid.sum().double(), d)),
-            "library_ms": None, "shape": "N=%d D=%d l1_motor" % (n, d)}
+            "library_ms": lib["ms"], "shape": "N=%d D=%d l1_motor" % (n, d)}
+
+
+def radius_library(coords, valid, eps, counts):
+    """K4's yardstick: (torch.cdist(q, ref[valid], p=1) <= eps).sum(1),
+    RADIUS_LIB_CHUNK queries at a time (the port never calls it), timed
+    over all rows once after a one-chunk warm-up (~5 minutes at N =
+    500,000 on an H100: cdist's p = 1 kernel), its counts set beside K4's
+    ``counts`` on every valid row. p = 1 sums |dx| + |dy| in its own order,
+    so rows may differ at the eps boundary: they are counted, not
+    refused."""
+    import torch
+
+    ref = coords[valid].contiguous()
+
+    def library(q):
+        return torch.cat([
+            (torch.cdist(q[s:s + RADIUS_LIB_CHUNK], ref, p=1) <= eps).sum(
+                dim=1, dtype=torch.int32)
+            for s in range(0, q.shape[0], RADIUS_LIB_CHUNK)])
+
+    library(coords[:RADIUS_LIB_CHUNK])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    mine = library(coords)
+    end.record()
+    end.synchronize()
+    diff = (mine - counts)[valid].abs()
+    return {"ms": start.elapsed_time(end), "chunk": RADIUS_LIB_CHUNK,
+            "rows_compared": int(diff.numel()),
+            "rows_differ": int((diff > 0).sum()),
+            "max_abs_diff": int(diff.max())}
 
 
 def engine_phase(dev, card, kernels):
@@ -1218,6 +1263,10 @@ def main():
     kernels = [{"name": name, "route": "cuda", "source": mods[name].SOURCE,
                 "replaces": mods[name].REPLACES, **row}
                for name, row in rows.items()]
+    # K2 at the Engine's max_hull on the same tier-2 tables: its time must
+    # follow the hull sizes, not max_hull
+    add_fields(kernels, {"cluster_shapes": hold_k2(
+        s.both, s.bval, ENGINE_MAX_HULL, "tier 2, h 64")}, "tier2_h64")
     print(json.dumps({"phase": "kernel_checks", "ok": True,
                       **{name: row["shape"] for name, row in rows.items()}}))
 

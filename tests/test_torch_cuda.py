@@ -181,7 +181,7 @@ def _clusters(seed, K, cap):
     return points, valid
 
 
-@pytest.mark.parametrize("max_hull", [3, 8, 32])
+@pytest.mark.parametrize("max_hull", [3, 8, 32, 64])
 @pytest.mark.parametrize("cap", [64, 1024])
 def test_shapes_kernel_matches_plain(gpu, max_hull, cap):
     points, valid = _clusters(max_hull + cap, 36, cap)
@@ -189,6 +189,85 @@ def test_shapes_kernel_matches_plain(gpu, max_hull, cap):
     v = torch.from_numpy(valid).to(gpu)
     kout = k_shapes.shapes_cuda(p, v, max_hull)
     pout = k_shapes.shapes_plain(p, v, max_hull, chunk_k=16, tri_chunk=97)
+    for a, b in zip(kout, pout):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
+
+
+def _hard_clusters(seed, K, cap):
+    """Clusters of exactly 0, 1, 2 and 3 valid points, cocircular points
+    (every triple of a ring has the same circumcircle), duplicates, and
+    rings of 70-200 points whose hull reaches max_hull 64, with interior
+    points; slots scattered over cap."""
+    rng = np.random.default_rng(seed)
+    points = np.zeros((K, cap, 2), np.float32)
+    valid = np.zeros((K, cap), bool)
+    for k in range(K):
+        kind = k % 8
+        if kind < 4:                                  # 0, 1, 2, 3 points
+            pts = rng.uniform(0, 1, (kind, 2))
+        elif kind == 4:                               # cocircular
+            a = np.linspace(0, 2 * np.pi, 16, endpoint=False)
+            pts = 0.5 + 0.3 * np.stack([np.cos(a), np.sin(a)], -1)
+        elif kind == 5:                               # duplicates
+            pts = np.repeat(rng.uniform(0, 1, (7, 2)), 3, axis=0)
+        else:                                         # full hull
+            m = min(cap - 10, int(rng.integers(70, 200)))
+            a = rng.permutation(np.linspace(0, 2 * np.pi, m,
+                                            endpoint=False))
+            ring = 0.5 + 0.4 * np.stack([np.cos(a), np.sin(a)], -1)
+            pts = np.concatenate([ring, 0.5 + 0.05 * rng.standard_normal(
+                (min(10, cap - m), 2))])
+        pts = pts[:cap]
+        slots = np.sort(rng.choice(cap, len(pts), replace=False))
+        points[k, slots] = pts
+        valid[k, slots] = True
+        points[k, ~valid[k]] = rng.uniform(-5, 5, ((~valid[k]).sum(), 2))
+    return points, valid
+
+
+@pytest.mark.parametrize("K", [1, 5, 37])
+@pytest.mark.parametrize("cap", [33, 250, 999])
+@pytest.mark.parametrize("max_hull", [32, 64])
+def test_shapes_kernel_hard_clusters(gpu, K, cap, max_hull):
+    """0-3 valid points, cocircular and duplicate points, hulls that reach
+    max_hull; cap not a multiple of 32 (odd caps take the scalar loads),
+    and K not a multiple of the clusters a block holds."""
+    points, valid = _hard_clusters(K * 1000 + cap, K, cap)
+    p = torch.from_numpy(points).to(gpu)
+    v = torch.from_numpy(valid).to(gpu)
+    kout = k_shapes.shapes_cuda(p, v, max_hull)
+    pout = k_shapes.shapes_plain(p, v, max_hull, chunk_k=8)
+    for a, b in zip(kout, pout):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("cap", [250, 1024])
+def test_shapes_kernel_every_group(gpu, cap):
+    """One, two or four warps a cluster (and the kernel's own choice) give
+    the plain version's answer: the enumeration, the pruning and the
+    argmins hold for any number of threads a cluster."""
+    points, valid = _hard_clusters(cap, 41, cap)
+    p = torch.from_numpy(points).to(gpu)
+    v = torch.from_numpy(valid).to(gpu)
+    pout = k_shapes.shapes_plain(p, v, 64, chunk_k=8)
+    for group in (0, 1, 2, 4):
+        kout = k_shapes.shapes_cuda(p, v, 64, group)
+        for a, b in zip(kout, pout):
+            torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
+
+
+def test_shapes_kernel_misaligned_rows(gpu):
+    """Rows that start off a 16-byte boundary (a contiguous view at an odd
+    float offset) take the scalar loads and give the same answer."""
+    points, valid = _hard_clusters(3, 16, 128)
+    flat = torch.zeros(points.size + 1, device=gpu)
+    flat[1:] = torch.from_numpy(points.reshape(-1)).to(gpu)
+    p = flat[1:].view(16, 128, 2)
+    vbig = torch.zeros(16 * 128 + 1, dtype=torch.bool, device=gpu)
+    vbig[1:] = torch.from_numpy(valid.reshape(-1)).to(gpu)
+    v = vbig[1:].view(16, 128)
+    kout = k_shapes.shapes_cuda(p, v, 64)
+    pout = k_shapes.shapes_plain(p.clone(), v.clone(), 64)
     for a, b in zip(kout, pout):
         torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
 
@@ -307,6 +386,46 @@ def test_radius_kernel_matches_plain(gpu, metric, dims, eps, n):
     assert bool((k[~v] == 0).all())
 
 
+@pytest.mark.parametrize("dims", [1, 2, 3])
+@pytest.mark.parametrize("metric,eps", [("l1_motor", 0.05), ("l2_xyz", 0.05),
+                                        ("signed_sum_xy", -0.2)])
+@pytest.mark.parametrize("tiles,partials", [(64, False), (1, False),
+                                            (2, True)])
+def test_radius_kernel_shapes_and_routes(gpu, metric, eps, dims, tiles,
+                                         partials):
+    """N = 1, 31, 33, and N not a multiple of the super-tile, every metric
+    at D = 1, 2, 3, both output routes (global atomics, partial counts),
+    bit-equal to the plain version; two launches equal."""
+    for n in (1, 31, 33, 2049 + 32 * tiles):
+        rng = np.random.default_rng(n * 10 + dims)
+        pts = _blobs(rng, 4, n // 8, n - 4 * (n // 8), 0.02, dims)
+        c = torch.from_numpy(pts.astype(np.float32)).to(gpu)
+        v = torch.from_numpy(rng.random(n) < 0.85).to(gpu)
+        v[0] = True
+        k = k_nn.radius_count_cuda(c, v, eps, metric, tiles, partials)
+        again = k_nn.radius_count_cuda(c, v, eps, metric, tiles, partials)
+        p = k_nn.radius_count_plain(c, v, eps, metric, chunk=512)
+        assert torch.equal(k, p) and torch.equal(k, again)
+
+
+@pytest.mark.parametrize("metric", ["l1_motor", "l2_xy", "signed_sum_xy"])
+def test_radius_kernel_at_eps_and_all_invalid(gpu, metric):
+    """Coordinates on an f32 grid of eps, so many pairs lie exactly at eps
+    (and at -eps for the signed sum): the kernel's d <= thr and the
+    mirrored -d <= thr equal the plain version's; all rows invalid gives
+    zeros."""
+    eps = 0.125
+    rng = np.random.default_rng(4)
+    pts = (rng.integers(0, 12, (3000, 2)) * np.float32(eps))
+    c = torch.from_numpy(pts.astype(np.float32)).to(gpu)
+    v = torch.from_numpy(rng.random(3000) < 0.9).to(gpu)
+    for e in (eps, -eps, 0.0, -0.0):
+        k = k_nn.radius_count_cuda(c, v, e, metric)
+        assert torch.equal(k, k_nn.radius_count_plain(c, v, e, metric))
+    none = torch.zeros_like(v)
+    assert not bool(k_nn.radius_count_cuda(c, none, eps, metric).any())
+
+
 def test_radius_kernel_refuses_bad_input(gpu):
     c = torch.zeros(64, 2, device=gpu)
     v = torch.ones(64, dtype=torch.bool, device=gpu)
@@ -320,6 +439,13 @@ def test_radius_kernel_refuses_bad_input(gpu):
         k_nn.radius_count_cuda(c, v.float(), 0.1)
     with pytest.raises(ValueError, match="unknown metric"):
         k_nn.radius_count_cuda(c, v, 0.1, "cosine")
+    with pytest.raises(ValueError, match="tiles"):
+        k_nn.radius_count_cuda(c, v, 0.1, tiles=257)
+    p = torch.zeros(2, 64, 2, device=gpu)
+    with pytest.raises(ValueError, match="max_hull"):
+        k_shapes.shapes_cuda(p, v.view(2, 32).repeat(1, 2), 1025)
+    with pytest.raises(ValueError, match="group"):
+        k_shapes.shapes_cuda(p, v.view(2, 32).repeat(1, 2), 64, 3)
 
 
 def test_engine_on_card_equals_plain(gpu):

@@ -59,7 +59,7 @@ def test_slice_modules_present():
 
 # what runs the port on the card besides the package itself
 PORT_SCRIPTS = ("chip_smoke", "tools.engine_session", "tools.tier3_inputs",
-                "tools.profile_k1")
+                "tools.profile_k1", "tools.profile_k2")
 
 
 def test_port_imports_no_jax():

@@ -139,6 +139,95 @@ def test_empty_input():
     assert out.shape == (0,) and out.dtype == torch.int32
 
 
+def _k4_schedule(pts, valid, eps, metric, tiles=2):
+    """CPU mirror of K4's schedule (csrc/radius.cu): super-tiles (I, J >= I)
+    of S = 32 ``tiles`` points, 32 x 32 tiles inside, row tile R against
+    column tiles C >= R in a diagonal super-tile; invalid and padding
+    points far away (1e30, or -1e30 for the signed sum). Each unordered
+    pair's distance d is computed once, from the row point: the sign of
+    thr - d decides the row and, off the diagonal tiles, the column (the
+    sign of thr + d for the signed sum, whose column sees -d). The diagonal
+    tiles test every point against itself. Counts of invalid points are
+    dropped."""
+    code = kn.RADIUS_METRICS[metric]
+    thr = torch.tensor(kn._radius_threshold(eps, metric),
+                       dtype=torch.float32) + 0.0
+    n, dims = pts.shape
+    S = 32 * tiles
+    n_s = -(-n // S)
+    padded = torch.full((n_s * S, dims), -1e30 if code == 1 else 1e30)
+    padded[:n][torch.from_numpy(valid)] = torch.from_numpy(pts)[
+        torch.from_numpy(valid)]
+    count = torch.zeros(n_s * S, dtype=torch.int32)
+    for I in range(n_s):
+        for J in range(I, n_s):
+            for R in range(tiles):
+                r0 = I * S + 32 * R
+                q = padded[r0:r0 + 32]
+                for C in range(R if I == J else 0, tiles):
+                    c0 = J * S + 32 * C
+                    d = None
+                    for k in range(dims):
+                        e = q[:, None, k] - padded[None, c0:c0 + 32, k]
+                        term = (e.abs() if code == 0
+                                else (e if code == 1 else e * e))
+                        d = term if d is None else d + term
+                    row = ~torch.signbit(thr - d)
+                    count[r0:r0 + 32] += row.sum(1, dtype=torch.int32)
+                    if I == J and C == R:
+                        continue
+                    col = ~torch.signbit(thr + d) if code == 1 else row
+                    count[c0:c0 + 32] += col.sum(0, dtype=torch.int32)
+    return torch.where(torch.from_numpy(valid), count[:n], 0).numpy()
+
+
+# eps per metric: l1 and l2 0.1, the signed sum negative (a half-plane)
+SCHEDULE_EPS = {"l1_motor": 0.1, "signed_sum_xy": -0.05, "l2_xyz": 0.1}
+
+
+@pytest.mark.parametrize("dims", [1, 2, 3])
+@pytest.mark.parametrize("metric", ["l1_motor", "signed_sum_xy", "l2_xyz"])
+def test_k4_schedule_equals_plain_and_jnp(metric, dims):
+    """K4's unordered-pair schedule gives radius_count_plain bit for bit at
+    N = 1, 31, 33 and N not a multiple of the super-tile, and
+    radius_count_jnp where no pair lies within 1e-4 (relative) of eps; with
+    a negative eps a point does not count itself."""
+    eps = SCHEDULE_EPS[metric]
+    for n in (1, 31, 33, 150):
+        # the first seed whose pairs all keep 1e-4 away from eps
+        pts, valid = next(f for f in (_fixture(s * 100 + n + dims, n, dims,
+                                               0.8) for s in range(50))
+                          if _min_gap(f[0], metric, eps) > 1e-4)
+        if n == 1:
+            valid[:] = True
+        got = _k4_schedule(pts, valid, eps, metric)
+        np.testing.assert_array_equal(got, _port(pts, valid, eps, metric))
+        ref = np.asarray(radius_count_jnp(jnp.asarray(pts),
+                                          jnp.asarray(valid), eps, metric))
+        np.testing.assert_array_equal(got, ref)
+        assert (got[~valid] == 0).all()
+        if eps > 0:
+            assert (got[valid] >= 1).all()
+
+
+@pytest.mark.parametrize("metric", ["l1_motor", "signed_sum_xy", "l2_xyz"])
+def test_k4_schedule_at_eps_and_all_invalid(metric):
+    """Points on an f32 grid of eps (pairs exactly at eps, and exactly at
+    -eps for the signed sum), and every row invalid."""
+    eps = 0.125
+    rng = np.random.default_rng(9)
+    pts = (rng.integers(0, 6, (70, 2)) * np.float32(eps)).astype(np.float32)
+    valid = rng.random(70) < 0.9
+    # eps 0 and -0: an exact-zero difference is +0, so both keep d <= 0
+    for e in (eps, -eps, 0.0, -0.0):
+        got = _k4_schedule(pts, valid, e, metric)
+        np.testing.assert_array_equal(got, _port(pts, valid, e, metric))
+    none = np.zeros(70, bool)
+    assert (_k4_schedule(pts, none, eps, metric) == 0).all()
+    np.testing.assert_array_equal(_port(pts, none, eps, metric),
+                                  np.zeros(70, np.int32))
+
+
 @pytest.mark.parametrize("metric,eps", [("l1_motor", 0.05),
                                         ("signed_sum_xy", 0.02)])
 def test_count_is_dbscan_core_test(metric, eps):

@@ -26,6 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("dbscan_block.cu", "shapes.cu", "nn.cu", "radius.cu")
+# headers the sources include (found beside them); part of the build's key
+HEADERS = ("bits.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
@@ -39,10 +41,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "vtkcp_dbscan_blocks": (_P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),
     "vtkcp_dbscan_smem_bytes": (_I, _I, _I),
-    "vtkcp_cluster_shapes": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P),
+    "vtkcp_cluster_shapes": (_P, _P, _I, _I, _I, _I, _P, _P),
+    "vtkcp_shapes_smem_bytes": (_I, _I),
+    "vtkcp_shapes_group": (_I, _I, _I),
     "vtkcp_nn_argmin": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "vtkcp_nn_queries_per_block": (),
-    "vtkcp_radius_count": (_P, _P, _I, _I, _I, _F, _P, _P),
+    "vtkcp_radius_count": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _P),
 }
 
 _lib = None
@@ -62,7 +66,7 @@ def _nvcc() -> str:
 
 def _digest(sources, flags) -> str:
     h = hashlib.sha256(" ".join(flags + LINK_FLAGS).encode())
-    for name in sources:
+    for name in tuple(sources) + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -58,7 +58,11 @@
 
 #include <type_traits>
 
+#include "bits.cuh"
+
 namespace {
+
+using vtkcp::transpose32;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
@@ -147,21 +151,6 @@ __device__ __forceinline__ float distance(const P& a, const P& b) {
     }
   }
   return d;
-}
-
-// 32 x 32 bit transpose across a warp: lane r holds row r (bit c = A[r][c]);
-// returns column `lane` (bit r = A[r][lane]).
-__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
-  const uint32_t masks[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu,
-                             0x33333333u, 0x55555555u};
-#pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    const int s = 16 >> k;
-    const uint32_t m = masks[k];
-    const uint32_t y = __shfl_xor_sync(kFull, x, s);
-    x = (lane & s) ? ((x & ~m) | ((y >> s) & m)) : ((x & m) | ((y & m) << s));
-  }
-  return x;
 }
 
 // Root of x: parents always have a smaller index, so the walk ends where

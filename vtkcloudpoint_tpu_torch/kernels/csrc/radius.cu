@@ -13,76 +13,82 @@
 // for L2 the host squares eps in double and rounds once, as the Pallas
 // kernel compares against the Python float eps * eps.
 //
-// What bounds it on the H100: all N^2 pairs are tested. At N = 500k, D = 2
-// that is 2.5e11 pair tests of ~6 instructions each (differences, abs or
-// square, sum, compare, predicated add): ~1.5e12 FP32/INT instructions
-// against ~3.4e13 issued per second, a floor of ~45 ms. Device memory is
-// no limit (each reference tile is read once per block).
+// What bounds it on the H100: FP32 issue. The least work tests each
+// unordered pair once: at N = 500k, D = 2, 1.25e11 pairs of 2 D
+// instructions, 14.9 ms at 33.5 T instructions/s. Device memory is no limit
+// (N D floats, read from L2 once per block).
 //
-// Design: one thread per query row keeps its count in an int32 register.
-// A block stages tiles of kTile references in shared memory as packed
-// vectors (float2 for D = 2, float4 for D = 3), so each pair costs one
-// broadcast shared-memory load; all lanes of a warp read the same word.
-// An invalid reference, and the ragged tail past N, are stored as NaN
-// coordinates: every metric's comparison with NaN is false, so the inner
-// loop needs neither a validity load nor a bounds check (this takes the
-// place of the TPU kernel's BIG padding).
+// Design: each unordered pair is tested once, for every metric.
+//   - fl(a - b) = -fl(b - a) exactly, so |.| and e * e give the same value
+//     from either side, and the signed sum seen from the column point is
+//     exactly the negated sum (the same terms, negated, added in the same
+//     order). One distance d(i, j) decides the row (d <= thr) and the column
+//     (d <= thr, or -d <= thr for the signed sum).
+//   - a decision is the sign of thr - d (of thr + d for the mirrored one):
+//     rounding never changes the sign of a difference, and an exact zero is
+//     +0 (thr is +0 when eps is 0), so `thr - d >= +0` is `d <= thr`. One
+//     funnel shift a pair moves the sign bit into the tile's word (a
+//     compare, a select and an add otherwise).
+//   - the N x N triangle is cut into super-tiles of S x S points (S = 32 w),
+//     one thread block each, J >= I. A block holds its S column points in
+//     shared memory as coordinate arrays; each warp takes two 32-row tiles
+//     with the row points in registers (lane r, rows 32 R + r and
+//     32 (R + 1) + r) and builds, per 32 x 32 tile, each row's 32 decisions
+//     into a word (column points read four at a time as float4 broadcasts,
+//     shared by both rows). The row count is popc(word); the column counts
+//     are popc of the word's warp bit transpose (bits.cuh), added into
+//     shared counters.
+//   - a diagonal tile (rows and columns the same 32 points) adds only row
+//     counts: its word already holds every ordered pair, self included (the
+//     self test is made, never assumed: with a negative eps a point does not
+//     count itself).
+//   - counts leave a block either by one global atomicAdd a row and a column
+//     (out zeroed first; integer adds, so the result does not depend on
+//     their order), or as partial counts [N / S, N] summed by a second
+//     kernel (`partials` given; tools/profile_k2.py times both).
+//   - an invalid point, and the ragged tail past N, sit at 1e30 (at -1e30
+//     for the signed sum): every decision against a valid point is then
+//     false (an L1 sum of ~1e30, an L2 sum of inf, a signed sum of ~+1e30
+//     from the row and ~-1e30 from the column), so no validity test runs
+//     per pair; counts of invalid points are not written.
 //
 // Build with --fmad=false: the L2 sum must not contract into FMAs, or a
 // count at the eps boundary could differ from the plain PyTorch version.
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "bits.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxTiles = 256;  // S <= 8,192 points a super-tile side
+enum Metric { kL1 = 0, kSignedSum = 1, kL2 = 2 };
 
-template <int D>
-struct Vec;
-template <>
-struct Vec<1> {
-  using T = float;
-  __device__ static T load(const float* p) { return p[0]; }
-  __device__ static T nan() { return __int_as_float(0x7fc00000); }
-  __device__ static float at(const T& v, int) { return v; }
-};
-template <>
-struct Vec<2> {
-  using T = float2;
-  __device__ static T load(const float* p) { return make_float2(p[0], p[1]); }
-  __device__ static T nan() {
-    const float n = __int_as_float(0x7fc00000);
-    return make_float2(n, n);
-  }
-  __device__ static float at(const T& v, int k) { return k == 0 ? v.x : v.y; }
-};
-template <>
-struct Vec<3> {
-  using T = float4;
-  __device__ static T load(const float* p) {
-    return make_float4(p[0], p[1], p[2], 0.0f);
-  }
-  __device__ static T nan() {
-    const float n = __int_as_float(0x7fc00000);
-    return make_float4(n, n, n, 0.0f);
-  }
-  __device__ static float at(const T& v, int k) {
-    return k == 0 ? v.x : (k == 1 ? v.y : v.z);
-  }
-};
+__host__ __device__ constexpr float away(int metric) {
+  return metric == kSignedSum ? -1e30f : 1e30f;
+}
 
+__device__ __forceinline__ float comp(const float4& v, int u) {
+  return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
+}
+
+// d(q, r) with q the row point and r column u of the four in v[k], terms in
+// coordinate order
 template <int D, int M>
 __device__ __forceinline__ float distance(const float (&q)[D],
-                                          const typename Vec<D>::T& r) {
+                                          const float4 (&v)[D], int u) {
   float d = 0.0f;
 #pragma unroll
   for (int k = 0; k < D; ++k) {
-    const float e = q[k] - Vec<D>::at(r, k);
+    const float e = q[k] - comp(v[k], u);
     float term;
-    if (M == 0) {
+    if (M == kL1) {
       term = fabsf(e);
-    } else if (M == 1) {
+    } else if (M == kSignedSum) {
       term = e;
     } else {
       term = e * e;
@@ -92,82 +98,227 @@ __device__ __forceinline__ float distance(const float (&q)[D],
   return d;
 }
 
+// word := word << 1 | sign bit of x
+__device__ __forceinline__ uint32_t push_sign(uint32_t word, float x) {
+  return __funnelshift_l(__float_as_uint(x), word, 1);
+}
+
+// Row-tile pair of a warp in a snake order over the warps, so that in a
+// diagonal block (row tile R holds w - R tiles) every warp gets about the
+// same walk.
+__device__ __forceinline__ int row_pair(int round, int warp) {
+  return round * kWarps + ((round & 1) ? kWarps - 1 - warp : warp);
+}
+
+// The super-tile (I, J), J >= I, of block b: row I holds n_s - I blocks.
+__device__ __forceinline__ void super_tile(long long b, int n_s, int& I,
+                                           int& J) {
+  const double m = 2.0 * n_s + 1.0;
+  long long i = (long long)((m - sqrt(m * m - 8.0 * (double)b)) / 2.0);
+  auto start = [n_s](long long r) { return r * n_s - r * (r - 1) / 2; };
+  i = i < 0 ? 0 : (i >= n_s ? n_s - 1 : i);
+  while (i > 0 && start(i) > b) --i;
+  while (i + 1 < n_s && start(i + 1) <= b) ++i;
+  I = (int)i;
+  J = (int)(i + (b - start(i)));
+}
+
 template <int D, int M>
 __global__ void __launch_bounds__(kThreads)
     radius_kernel(const float* __restrict__ coords,
-                  const uint8_t* __restrict__ valid, int n, float thr,
-                  int* __restrict__ out) {
-  using V = Vec<D>;
-  __shared__ typename V::T tile[kTile];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  float q[D];
+                  const uint8_t* __restrict__ valid, int n, int w, float thr,
+                  int* __restrict__ out, int* __restrict__ partials) {
+  extern __shared__ __align__(16) float smem[];
+  const int S = w << 5;
+  float* col = smem;                    // D arrays of S column coordinates
+  int* colcnt = (int*)(smem + D * S);   // S column counts
+
+  const int n_s = (n + S - 1) / S;
+  int I, J;
+  super_tile(blockIdx.x, n_s, I, J);
+  const bool diag = I == J;
+  const int row0 = I * S;
+  const int col0 = J * S;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  for (int t = tid; t < S; t += kThreads) {
+    const int j = col0 + t;
+    const bool ok = j < n && valid[j];
 #pragma unroll
-  for (int k = 0; k < D; ++k) q[k] = 0.0f;
-  if (i < n) {
+    for (int k = 0; k < D; ++k)
+      col[k * S + t] = ok ? coords[(size_t)D * j + k] : away(M);
+    colcnt[t] = 0;
+  }
+  __syncthreads();
+
+  // tiles past N hold only far points: skipped
+  const int w_rows = min(w, (n - row0 + 31) >> 5);
+  const int w_cols = min(w, (n - col0 + 31) >> 5);
+  const int n_pairs = (w_rows + 1) >> 1;
+  for (int round = 0; round * kWarps < n_pairs; ++round) {
+    const int P = row_pair(round, warp);
+    if (P >= n_pairs) continue;
+    const int R0 = 2 * P, R1 = 2 * P + 1;
+    const int i0 = row0 + (R0 << 5) + lane;
+    const int i1 = i0 + 32;
+    const bool ok0 = i0 < n && valid[i0];
+    const bool ok1 = R1 < w_rows && i1 < n && valid[i1];
+    float q0[D], q1[D];
 #pragma unroll
-    for (int k = 0; k < D; ++k) q[k] = coords[(size_t)D * i + k];
-  }
-  int count = 0;
-  for (int base = 0; base < n; base += kTile) {
-    for (int l = threadIdx.x; l < kTile; l += kThreads) {
-      const int j = base + l;
-      tile[l] = (j < n && valid[j]) ? V::load(coords + (size_t)D * j)
-                                    : V::nan();
+    for (int k = 0; k < D; ++k) {
+      q0[k] = ok0 ? coords[(size_t)D * i0 + k] : away(M);
+      q1[k] = ok1 ? coords[(size_t)D * i1 + k] : away(M);
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int l = 0; l < kTile; ++l) {
-      count += distance<D, M>(q, tile[l]) <= thr ? 1 : 0;
+    int cnt0 = 0, cnt1 = 0;
+    // column tiles C0 .. w_cols - 1, each warp from its own starting tile so
+    // that the warps' shared-memory adds meet less
+    const int C0 = diag ? R0 : 0;
+    const int nt = w_cols - C0;
+    int C = C0 + warp % nt;
+    for (int t = 0; t < nt; ++t, C = (C + 1 == w_cols) ? C0 : C + 1) {
+      // bit c of a word: column 32 C + c is NOT within (the sign of thr -
+      // d); the columns go in from 31 down to 0
+      uint32_t b0 = 0u, b1 = 0u, m0 = 0u, m1 = 0u;
+#pragma unroll
+      for (int c = 28; c >= 0; c -= 4) {
+        float4 v[D];
+#pragma unroll
+        for (int k = 0; k < D; ++k)
+          v[k] = *reinterpret_cast<const float4*>(col + k * S + (C << 5) + c);
+#pragma unroll
+        for (int u = 3; u >= 0; --u) {
+          const float d0 = distance<D, M>(q0, v, u);
+          const float d1 = distance<D, M>(q1, v, u);
+          b0 = push_sign(b0, thr - d0);
+          b1 = push_sign(b1, thr - d1);
+          if (M == kSignedSum) {
+            m0 = push_sign(m0, thr + d0);
+            m1 = push_sign(m1, thr + d1);
+          }
+        }
+      }
+      // in a diagonal block, row tile R1 starts at column tile R1
+      const bool use1 = !diag || C >= R1;
+      cnt0 += __popc(~b0);
+      if (use1) cnt1 += __popc(~b1);
+      const uint32_t c0 = ~(M == kSignedSum ? m0 : b0);
+      const uint32_t c1 = ~(M == kSignedSum ? m1 : b1);
+      const bool tdiag0 = diag && C == R0;
+      const bool tdiag1 = diag && C == R1;
+      int add = 0;
+      if (!tdiag0) add += __popc(vtkcp::transpose32(c0, lane));
+      if (use1 && !tdiag1) add += __popc(vtkcp::transpose32(c1, lane));
+      if (add) atomicAdd(colcnt + (C << 5) + lane, add);
     }
-    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = h ? i1 : i0;
+      const int cnt = h ? cnt1 : cnt0;
+      const bool ok = h ? ok1 : ok0;
+      if (diag) {  // rows are columns here: one count a point
+        if (ok && cnt) atomicAdd(colcnt + i - row0, cnt);
+      } else if (partials) {
+        if (i < n && (h == 0 || R1 < w_rows))
+          partials[(size_t)J * n + i] = ok ? cnt : 0;
+      } else if (ok && cnt) {
+        atomicAdd(out + i, cnt);
+      }
+    }
   }
-  if (i < n) out[i] = valid[i] ? count : 0;
+  __syncthreads();
+  for (int t = tid; t < S; t += kThreads) {
+    const int j = col0 + t;
+    if (j >= n) break;
+    const int cnt = valid[j] ? colcnt[t] : 0;
+    if (partials) {
+      partials[(size_t)I * n + j] = cnt;
+    } else if (cnt) {
+      atomicAdd(out + j, cnt);
+    }
+  }
+}
+
+// out[i] = sum over the n_s strips of partials[s, i]
+__global__ void sum_partials(const int* __restrict__ partials, int n, int n_s,
+                             int* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int s = 0;
+  for (int k = 0; k < n_s; ++k) s += partials[(size_t)k * n + i];
+  out[i] = s;
+}
+
+template <int D, int M>
+cudaError_t launch(const float* coords, const uint8_t* valid, int n, int w,
+                   float thr, int* partials, int* out, cudaStream_t stream) {
+  const int S = w << 5;
+  const long long n_s = (n + (long long)S - 1) / S;
+  const long long blocks = n_s * (n_s + 1) / 2;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const int bytes = (D + 1) * S * (int)sizeof(float);
+  auto kernel = radius_kernel<D, M>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  if (!partials) {
+    err = cudaMemsetAsync(out, 0, (size_t)n * sizeof(int), stream);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<(unsigned)blocks, kThreads, bytes, stream>>>(coords, valid, n, w,
+                                                        thr, out, partials);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !partials) return err;
+  sum_partials<<<(n + 255) / 256, 256, 0, stream>>>(partials, n, (int)n_s,
+                                                    out);
+  return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_metric(int metric, const float* coords,
-                          const uint8_t* valid, int n, float thr, int* out,
-                          cudaStream_t stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
+                          const uint8_t* valid, int n, int w, float thr,
+                          int* partials, int* out, cudaStream_t stream) {
   switch (metric) {
-    case 0:
-      radius_kernel<D, 0><<<blocks, kThreads, 0, stream>>>(coords, valid, n,
-                                                           thr, out);
-      break;
-    case 1:
-      radius_kernel<D, 1><<<blocks, kThreads, 0, stream>>>(coords, valid, n,
-                                                           thr, out);
-      break;
-    case 2:
-      radius_kernel<D, 2><<<blocks, kThreads, 0, stream>>>(coords, valid, n,
-                                                           thr, out);
-      break;
+    case kL1:
+      return launch<D, kL1>(coords, valid, n, w, thr, partials, out, stream);
+    case kSignedSum:
+      return launch<D, kSignedSum>(coords, valid, n, w, thr, partials, out,
+                                   stream);
+    case kL2:
+      return launch<D, kL2>(coords, valid, n, w, thr, partials, out, stream);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 // coords f32 [N, D] (D = 1, 2 or 3), valid u8 [N], both contiguous; output
 // count i32 [N]. metric: 0 l1_motor, 1 signed_sum_xy, 2 l2 (thr = eps^2).
-// Returns a cudaError_t.
+// Super-tiles of S = 32 * tiles points a side (1 <= tiles <= 256). With
+// partials = NULL the counts leave each block by global atomics into out;
+// else partials is i32 [ceil(N / S), N] scratch and a second kernel sums it
+// into out. Returns a cudaError_t.
 extern "C" int vtkcp_radius_count(const void* coords, const void* valid,
                                   int n, int d, int metric, float thr,
-                                  void* out, void* stream) {
+                                  int tiles, void* partials, void* out,
+                                  void* stream) {
   if (n <= 0) return cudaSuccess;
+  if (tiles < 1 || tiles > kMaxTiles) return cudaErrorInvalidValue;
   const float* c = (const float*)coords;
   const uint8_t* v = (const uint8_t*)valid;
+  int* p = (int*)partials;
   int* o = (int*)out;
   cudaStream_t s = (cudaStream_t)stream;
+  thr = thr + 0.0f;  // -0 -> +0: an exact-zero difference is +0
   switch (d) {
     case 1:
-      return launch_metric<1>(metric, c, v, n, thr, o, s);
+      return launch_metric<1>(metric, c, v, n, tiles, thr, p, o, s);
     case 2:
-      return launch_metric<2>(metric, c, v, n, thr, o, s);
+      return launch_metric<2>(metric, c, v, n, tiles, thr, p, o, s);
     case 3:
-      return launch_metric<3>(metric, c, v, n, thr, o, s);
+      return launch_metric<3>(metric, c, v, n, tiles, thr, p, o, s);
     default:
       return cudaErrorInvalidValue;
   }
