@@ -17,6 +17,7 @@ from vtkcloudpoint_tpu_torch.cluster.pipeline import cluster_scan
 from vtkcloudpoint_tpu_torch.config import (ClusterConfig, EngineConfig,
                                             ICPConfig)
 from vtkcloudpoint_tpu_torch.engine import Engine
+from vtkcloudpoint_tpu_torch.kernels import build
 from vtkcloudpoint_tpu_torch.kernels import dbscan as k_dbscan
 from vtkcloudpoint_tpu_torch.kernels import neighbor as k_nn
 from vtkcloudpoint_tpu_torch.kernels import shapes as k_shapes
@@ -241,19 +242,23 @@ def test_shapes_kernel_hard_clusters(gpu, K, cap, max_hull):
         torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("cap", [250, 1024])
-def test_shapes_kernel_every_group(gpu, cap):
-    """One, two or four warps a cluster (and the kernel's own choice) give
-    the plain version's answer: the enumeration, the pruning and the
-    argmins hold for any number of threads a cluster."""
-    points, valid = _hard_clusters(cap, 41, cap)
+@pytest.mark.parametrize("per_sm,extra,group", [(8, 0, 4), (8, 1, 2),
+                                                (32, 0, 2), (32, 1, 1)])
+def test_shapes_kernel_every_group(gpu, per_sm, extra, group):
+    """K on either side of 8 and 32 clusters an SM, where the kernel goes
+    from four to two and from two to one warps a cluster: each gives the
+    plain version's answer (the enumeration, the pruning and the argmins
+    hold for any number of threads a cluster)."""
+    K = per_sm * k_nn.sm_count(gpu.index) + extra
+    cap = 250
+    assert build.load().vtkcp_shapes_group(K, cap, 64) == group
+    points, valid = _hard_clusters(K, K, cap)
     p = torch.from_numpy(points).to(gpu)
     v = torch.from_numpy(valid).to(gpu)
-    pout = k_shapes.shapes_plain(p, v, 64, chunk_k=8)
-    for group in (0, 1, 2, 4):
-        kout = k_shapes.shapes_cuda(p, v, 64, group)
-        for a, b in zip(kout, pout):
-            torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
+    kout = k_shapes.shapes_cuda(p, v, 64)
+    pout = k_shapes.shapes_plain(p, v, 64, chunk_k=512)
+    for a, b in zip(kout, pout):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
 
 
 def test_shapes_kernel_misaligned_rows(gpu):
@@ -389,23 +394,56 @@ def test_radius_kernel_matches_plain(gpu, metric, dims, eps, n):
 @pytest.mark.parametrize("dims", [1, 2, 3])
 @pytest.mark.parametrize("metric,eps", [("l1_motor", 0.05), ("l2_xyz", 0.05),
                                         ("signed_sum_xy", -0.2)])
-@pytest.mark.parametrize("tiles,partials", [(64, False), (1, False),
-                                            (2, True)])
-def test_radius_kernel_shapes_and_routes(gpu, metric, eps, dims, tiles,
-                                         partials):
-    """N = 1, 31, 33, and N not a multiple of the super-tile, every metric
-    at D = 1, 2, 3, both output routes (global atomics, partial counts),
-    bit-equal to the plain version; two launches equal."""
-    for n in (1, 31, 33, 2049 + 32 * tiles):
+def test_radius_kernel_super_tile_edges(gpu, metric, eps, dims):
+    """N = 1, 31, 33, and N below, at and above one and two super-tiles of
+    2,048 points, every metric at D = 1, 2, 3: bit-equal to the plain
+    version; two launches equal (the atomics run in any order)."""
+    for n in (1, 31, 33, 2047, 2048, 2049, 4096, 4129):
         rng = np.random.default_rng(n * 10 + dims)
         pts = _blobs(rng, 4, n // 8, n - 4 * (n // 8), 0.02, dims)
         c = torch.from_numpy(pts.astype(np.float32)).to(gpu)
         v = torch.from_numpy(rng.random(n) < 0.85).to(gpu)
         v[0] = True
-        k = k_nn.radius_count_cuda(c, v, eps, metric, tiles, partials)
-        again = k_nn.radius_count_cuda(c, v, eps, metric, tiles, partials)
+        k = k_nn.radius_count_cuda(c, v, eps, metric)
+        again = k_nn.radius_count_cuda(c, v, eps, metric)
         p = k_nn.radius_count_plain(c, v, eps, metric, chunk=512)
         assert torch.equal(k, p) and torch.equal(k, again)
+
+
+@pytest.mark.parametrize("metric", ["l1_motor", "l2_xy", "signed_sum_xy"])
+def test_radius_kernel_non_finite_and_extreme(gpu, metric):
+    """Valid rows with a NaN or an infinite coordinate (a NaN distance is
+    never within, as in the plain version; inf - inf is NaN), valid points
+    at +-1e30 and +-3e38 (whose signed sums overflow to inf + -inf) and at
+    +-8e37 (large, but their differences stay finite), invalid rows holding
+    NaN, +-1e30 or inf, and eps up to inf: bit-equal to the plain version.
+    NaN and inf points sit in super-tile 0, the huge ones in 2, the large
+    ones in 1 and 3, so blocks (1, 1), (1, 3) and (3, 3) take the sign bits
+    with 8e37 points and the others compare."""
+    rng = np.random.default_rng(12)
+    n = 3 * 2048 + 100
+    pts = rng.uniform(0, 1, (n, 2)).astype(np.float32)
+    kinds = [
+        np.float32([[np.nan, 0.5], [0.5, np.nan], [np.nan, np.nan]]),
+        np.float32([[np.inf, 0.5], [np.inf, 0.5], [-np.inf, 0.2],
+                    [np.inf, -np.inf], [0.3, -np.inf]]),
+        np.float32([[1e30, 1e30], [-1e30, -1e30], [1e30, -1e30],
+                    [3e38, 3e38], [3e38, -3e38], [-3e38, 3e38]]),
+        np.float32([[8e37, -8e37], [-8e37, 8e37]])]
+    valid = rng.random(n) < 0.85
+    for start, kind in zip((5, 300, 4100, 2100, 6200), kinds + kinds[3:]):
+        pts[start:start + len(kind)] = kind
+        valid[start:start + len(kind)] = True
+    bad = np.flatnonzero(~valid)
+    pts[bad] = np.float32([[np.nan, np.nan], [1e30, 1e30], [-1e30, -1e30],
+                           [np.inf, np.inf]])[np.arange(len(bad)) % 4]
+    c = torch.from_numpy(pts).to(gpu)
+    v = torch.from_numpy(valid).to(gpu)
+    for eps in (0.1, -0.1, 1e15, np.inf):
+        k = k_nn.radius_count_cuda(c, v, eps, metric)
+        p = k_nn.radius_count_plain(c, v, eps, metric, chunk=512)
+        assert torch.equal(k, p), eps
+        assert bool((k[~v] == 0).all())
 
 
 @pytest.mark.parametrize("metric", ["l1_motor", "l2_xy", "signed_sum_xy"])
@@ -439,13 +477,9 @@ def test_radius_kernel_refuses_bad_input(gpu):
         k_nn.radius_count_cuda(c, v.float(), 0.1)
     with pytest.raises(ValueError, match="unknown metric"):
         k_nn.radius_count_cuda(c, v, 0.1, "cosine")
-    with pytest.raises(ValueError, match="tiles"):
-        k_nn.radius_count_cuda(c, v, 0.1, tiles=257)
     p = torch.zeros(2, 64, 2, device=gpu)
     with pytest.raises(ValueError, match="max_hull"):
         k_shapes.shapes_cuda(p, v.view(2, 32).repeat(1, 2), 1025)
-    with pytest.raises(ValueError, match="group"):
-        k_shapes.shapes_cuda(p, v.view(2, 32).repeat(1, 2), 64, 3)
 
 
 def test_engine_on_card_equals_plain(gpu):

@@ -140,27 +140,36 @@ def test_empty_input():
 
 
 def _k4_schedule(pts, valid, eps, metric, tiles=2):
-    """CPU mirror of K4's schedule (csrc/radius.cu): super-tiles (I, J >= I)
-    of S = 32 ``tiles`` points, 32 x 32 tiles inside, row tile R against
-    column tiles C >= R in a diagonal super-tile; invalid and padding
-    points far away (1e30, or -1e30 for the signed sum). Each unordered
-    pair's distance d is computed once, from the row point: the sign of
-    thr - d decides the row and, off the diagonal tiles, the column (the
-    sign of thr + d for the signed sum, whose column sees -d). The diagonal
-    tiles test every point against itself. Counts of invalid points are
-    dropped."""
+    """CPU mirror of K4's schedule (csrc/radius.cu) at a super-tile of S =
+    32 ``tiles`` points (the kernel's S is 2,048; a small S gives several
+    super-tiles at a small N): super-tiles (I, J >= I), 32 x 32 tiles
+    inside, row tile R against column tiles C >= R in a diagonal
+    super-tile; padding past N at 0. Each unordered pair's distance d is
+    computed once, from the row point, and decides the row and, off the
+    diagonal tiles, the column (the signed sum's column sees -d), each
+    masked by the row's and the column's validity. A super-tile takes the
+    sign of thr - d (thr + d mirrored), unless thr is not finite or a
+    valid point of its rows or columns is wild (a coordinate NaN, infinite
+    or >= 2^126): then d <= thr (-thr <= d mirrored). The mirror asserts
+    that no signed decision meets a NaN distance. The diagonal tiles test
+    every point against itself."""
     code = kn.RADIUS_METRICS[metric]
     thr = torch.tensor(kn._radius_threshold(eps, metric),
                        dtype=torch.float32) + 0.0
     n, dims = pts.shape
     S = 32 * tiles
     n_s = -(-n // S)
-    padded = torch.full((n_s * S, dims), -1e30 if code == 1 else 1e30)
-    padded[:n][torch.from_numpy(valid)] = torch.from_numpy(pts)[
-        torch.from_numpy(valid)]
+    padded = torch.zeros((n_s * S, dims))
+    padded[:n] = torch.from_numpy(pts)
+    ok = torch.zeros(n_s * S, dtype=torch.bool)
+    ok[:n] = torch.from_numpy(valid)
+    wild = ok & ~(padded.abs() < 2.0 ** 126).all(dim=1)
+    exact_thr = not bool(thr.abs() < float("inf"))
     count = torch.zeros(n_s * S, dtype=torch.int32)
     for I in range(n_s):
         for J in range(I, n_s):
+            exact = exact_thr or bool(wild[I * S:I * S + S].any()
+                                      or wild[J * S:J * S + S].any())
             for R in range(tiles):
                 r0 = I * S + 32 * R
                 q = padded[r0:r0 + 32]
@@ -172,13 +181,20 @@ def _k4_schedule(pts, valid, eps, metric, tiles=2):
                         term = (e.abs() if code == 0
                                 else (e if code == 1 else e * e))
                         d = term if d is None else d + term
-                    row = ~torch.signbit(thr - d)
+                    mask = ok[r0:r0 + 32, None] & ok[None, c0:c0 + 32]
+                    if exact:
+                        row, col = d <= thr, -thr <= d
+                    else:
+                        assert not bool(d[mask].isnan().any())
+                        row = ~torch.signbit(thr - d)
+                        col = ~torch.signbit(thr + d)
+                    row = row & mask
                     count[r0:r0 + 32] += row.sum(1, dtype=torch.int32)
                     if I == J and C == R:
                         continue
-                    col = ~torch.signbit(thr + d) if code == 1 else row
+                    col = (col & mask) if code == 1 else row
                     count[c0:c0 + 32] += col.sum(0, dtype=torch.int32)
-    return torch.where(torch.from_numpy(valid), count[:n], 0).numpy()
+    return count[:n].numpy()
 
 
 # eps per metric: l1 and l2 0.1, the signed sum negative (a half-plane)
@@ -226,6 +242,43 @@ def test_k4_schedule_at_eps_and_all_invalid(metric):
     assert (_k4_schedule(pts, none, eps, metric) == 0).all()
     np.testing.assert_array_equal(_port(pts, none, eps, metric),
                                   np.zeros(70, np.int32))
+
+
+@pytest.mark.parametrize("tiles", [1, 2])
+@pytest.mark.parametrize("metric", ["l1_motor", "signed_sum_xy", "l2_xyz"])
+def test_k4_schedule_non_finite(metric, tiles):
+    """Valid rows with NaN or infinite coordinates (a NaN distance is never
+    within; inf - inf is NaN), valid points at +-1e30, +-8e37 and +-3e38,
+    invalid rows holding NaN, 1e30 or inf, and eps up to inf: the
+    schedule's masked decisions, signed where no NaN can arise, give
+    radius_count_plain."""
+    rng = np.random.default_rng(10)
+    pts = rng.uniform(0, 1, (100, 2)).astype(np.float32)
+    # NaN, infinite, huge and large-but-tame points in different
+    # super-tiles, so each kind decides its own tiles' path
+    nan_rows, inf_rows = np.arange(3, 6), np.arange(70, 75)
+    huge_rows, tame_rows = np.arange(96, 100), np.arange(40, 42)
+    pts[nan_rows] = np.float32([[np.nan, 0.5], [0.5, np.nan],
+                                [np.nan, np.nan]])
+    pts[inf_rows] = np.float32([[np.inf, 0.5], [np.inf, 0.5],
+                                [-np.inf, 0.2], [np.inf, -np.inf],
+                                [0.3, -np.inf]])
+    # 3e38 - (-3e38) overflows: the signed sum of (3e38, -3e38) and
+    # (-3e38, 3e38) is inf + -inf, NaN
+    pts[huge_rows] = np.float32([[1e30, -1e30], [3e38, 3e38],
+                                 [3e38, -3e38], [-3e38, 3e38]])
+    # differences stay finite: these take the sign path
+    pts[tame_rows] = np.float32([[8e37, -8e37], [-8e37, 8e37]])
+    valid = rng.random(100) < 0.8
+    for rows in (nan_rows, inf_rows, huge_rows, tame_rows):
+        valid[rows] = True
+    bad = np.flatnonzero(~valid)
+    pts[bad] = np.float32([[np.nan, np.nan], [1e30, 1e30],
+                           [np.inf, np.inf]])[np.arange(len(bad)) % 3]
+    for eps in (0.1, -0.1, 1e15, np.inf):
+        got = _k4_schedule(pts, valid, eps, metric, tiles)
+        np.testing.assert_array_equal(got, _port(pts, valid, eps, metric))
+        assert (got[~valid] == 0).all()
 
 
 @pytest.mark.parametrize("metric,eps", [("l1_motor", 0.05),

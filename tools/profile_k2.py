@@ -1,5 +1,5 @@
 """Where the time of K2 (cluster shapes) goes on one GPU, and K4's (radius
-count) time per metric, super-tile and output route.
+count) time per metric.
 
     python3 tools/profile_k2.py [--reps 20]
 
@@ -19,18 +19,19 @@ hulls all reach max_hull, and prints for each, as JSON lines:
   worst          the three slowest clusters, phase by phase;
 and the kernel library's time beside the diagnostic build's (the cost of
 the clocks). The diagnostic build's output must equal the kernel library's.
-At each shape it also times the kernel library with 1, 2 and 4 warps a
-cluster and with the kernel's own choice, in turns; every setting's output
-must equal the default's.
+A second diagnostic build (macro VTKCP_K2_LOAD_ONLY) stops every cluster
+after its load and compaction: its time is the most that overlapping the
+load with the shaping could hide. At each shape it also times the kernel
+library (its own choice of warps a cluster) against diagnostic builds that
+fix 1, 2 and 4 warps a cluster (macro VTKCP_K2_GROUP), in turns; every
+build's output must equal the kernel library's.
 
 K4: times radius_count_cuda at N = 500,000 (the tier-2 cloud) for each
-metric (l1_motor on the motor coordinates, D = 2; l2_xyz on XYZ, D = 3;
-signed_sum_xy on the motor coordinates with a negative eps), with super-
-tiles of 1,024, 2,048 and 4,096 points and both output routes (global
-atomics, partial counts summed by a second kernel), in turns; every
-setting's counts must equal the default's.
+metric: l1_motor on the motor coordinates, D = 2; l2_xyz on XYZ, D = 3;
+signed_sum_xy on the motor coordinates with a negative eps.
 """
 import argparse
+import concurrent.futures
 import json
 import os
 import sys
@@ -44,20 +45,47 @@ import chip_smoke  # noqa: E402
 
 PHASES = ("load", "wrap", "mec_pairs", "mec_triples", "rect")
 SLOTS = 8
-K4_TILES = (32, 64, 128)
-GROUPS = (0, 1, 2, 4)
+GROUPS = (1, 2, 4)
 
 
-def diagnostic_library():
+def diagnostic_libraries():
+    """The clock64 build, the load-only build and one build a fixed
+    warps-a-cluster of GROUPS, compiled together: (profile library,
+    load-only library, {G: library})."""
     from vtkcloudpoint_tpu_torch.kernels import build
 
     sigs = {k: v for k, v in build.SIGNATURES.items()
             if k.startswith("vtkcp_shapes") or k == "vtkcp_cluster_shapes"}
-    sigs["vtkcp_k2_profile_buffer"] = (build._P,)
+    builds = {"profile": (("VTKCP_K2_PROFILE",), "libvtkcp_k2_profile"),
+              "load": (("VTKCP_K2_LOAD_ONLY",), "libvtkcp_k2_load")}
+    for g in GROUPS:
+        builds[g] = ((f"VTKCP_K2_GROUP={g}",), f"libvtkcp_k2_group{g}")
     # dbscan_block.cu carries vtkcp_error_string, which open_library binds
-    path = build.build(("shapes.cu", "dbscan_block.cu"),
-                       ("VTKCP_K2_PROFILE",), "libvtkcp_k2_profile")
-    return build.open_library(path, sigs)
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        paths = dict(zip(builds, pool.map(
+            lambda b: build.build(("shapes.cu", "dbscan_block.cu"), *b),
+            builds.values())))
+    prof = build.open_library(paths.pop("profile"), {
+        **sigs, "vtkcp_k2_profile_buffer": (build._P,)})
+    load = build.open_library(paths.pop("load"), sigs)
+    return prof, load, {g: build.open_library(p, sigs)
+                        for g, p in paths.items()}
+
+
+def launch(lib, points, valid, max_hull):
+    """``vtkcp_cluster_shapes`` of a diagnostic library ``lib`` on inputs
+    that shapes_cuda has accepted: out f32 [K, 6]."""
+    import torch
+
+    from vtkcloudpoint_tpu_torch.kernels import build
+
+    K, cap, _ = points.shape
+    out = torch.empty((K, 6), dtype=torch.float32, device=points.device)
+    build.check(lib.vtkcp_cluster_shapes(
+        points.data_ptr(), valid.data_ptr(), K, cap, max_hull,
+        out.data_ptr(), build.stream_handle(points.device)),
+        "vtkcp_cluster_shapes")
+    return out
 
 
 def tier_tables(inp):
@@ -113,18 +141,19 @@ def ring_tables(dev, K=2048, cap=1024, ring=200):
     return (torch.from_numpy(points).to(dev), torch.from_numpy(valid).to(dev))
 
 
-def split(name, points, valid, max_hull, lib, reps, card):
+def split(name, points, valid, max_hull, libs, reps, card):
     import torch
 
     from vtkcloudpoint_tpu_torch.kernels import build
     from vtkcloudpoint_tpu_torch.kernels import shapes as k_shapes
 
+    lib, load_lib, group_libs = libs
     K, cap, _ = points.shape
     prof = torch.zeros((K, SLOTS), dtype=torch.int64, device=points.device)
     build.check(lib.vtkcp_k2_profile_buffer(prof.data_ptr()),
                 "vtkcp_k2_profile_buffer")
-    diag = k_shapes.launch(points, valid, max_hull, lib)
     prod = torch.stack(k_shapes.shapes_cuda(points, valid, max_hull), 1)
+    diag = launch(lib, points, valid, max_hull)
     torch.cuda.synchronize()
     chip_smoke.require(torch.equal(diag, prod),
                        f"diagnostic K2 differs ({name})")
@@ -136,14 +165,16 @@ def split(name, points, valid, max_hull, lib, reps, card):
     share = mean / mean.sum()
     ms = chip_smoke.cuda_ms(lambda: k_shapes.shapes_cuda(
         points, valid, max_hull), reps)
-    diag_ms = chip_smoke.cuda_ms(lambda: k_shapes.launch(
-        points, valid, max_hull, lib), reps)
+    diag_ms = chip_smoke.cuda_ms(lambda: launch(lib, points, valid,
+                                                max_hull), reps)
     nh, nv = clocks[:, 6], clocks[:, 7]
     worst = np.argsort(cycles.sum(axis=1))[::-1][:3]
     print(json.dumps({
         "k2_split": name, "card": card,
         "shape": f"K={K} cap={cap} h={max_hull}",
         "ms": ms, "diagnostic_ms": diag_ms,
+        "load_only_ms": chip_smoke.cuda_ms(lambda: launch(
+            load_lib, points, valid, max_hull), reps),
         "phase_cycles": dict(zip(PHASES, mean.tolist())),
         "phase_share": dict(zip(PHASES, share.round(4).tolist())),
         "phase_ms": dict(zip(PHASES, (share * ms).tolist())),
@@ -157,37 +188,37 @@ def split(name, points, valid, max_hull, lib, reps, card):
                   "empty": int((nv == 0).sum())},
         "worst": [{"cluster": int(w), "phase_cycles": cycles[w].tolist(),
                    "hull": int(nh[w]), "valid": int(nv[w])} for w in worst],
-        "group_chosen": lib.vtkcp_shapes_group(K, cap, max_hull),
-        "group_ms": group_sweep(points, valid, max_hull, prod, reps),
+        "group_chosen": build.load().vtkcp_shapes_group(K, cap, max_hull),
+        "group_ms": group_sweep(points, valid, max_hull, prod, group_libs,
+                                reps),
         "smem_bytes_per_cluster": lib.vtkcp_shapes_smem_bytes(cap,
                                                               max_hull)}))
 
 
-def group_sweep(points, valid, max_hull, prod, reps):
-    """The kernel library's CUDA-event ms at each warps-a-cluster setting of
-    GROUPS (0: the kernel's choice), forward then backward; each output
-    must equal ``prod``."""
+def group_sweep(points, valid, max_hull, prod, group_libs, reps):
+    """CUDA-event ms of the kernel library ("auto") and of each fixed
+    warps-a-cluster build of ``group_libs``, forward then backward; each
+    output must equal ``prod``."""
     import torch
 
     from vtkcloudpoint_tpu_torch.kernels import shapes as k_shapes
 
+    runs = {"auto": lambda: torch.stack(k_shapes.shapes_cuda(
+        points, valid, max_hull), 1)}
+    for g, lib in group_libs.items():
+        runs[str(g)] = (lambda lib=lib: launch(lib, points, valid, max_hull))
     times = {}
-    for order in (GROUPS, GROUPS[::-1]):
-        for group in order:
-            got = torch.stack(k_shapes.shapes_cuda(points, valid, max_hull,
-                                                   group), 1)
-            chip_smoke.require(torch.equal(got, prod),
-                               f"K2 with {group} warps a cluster differs")
-            times.setdefault(str(group), []).append(chip_smoke.cuda_ms(
-                lambda: k_shapes.shapes_cuda(points, valid, max_hull, group),
-                reps))
+    for order in (list(runs), list(runs)[::-1]):
+        for key in order:
+            chip_smoke.require(torch.equal(runs[key](), prod),
+                               f"K2 with {key} warps a cluster differs")
+            times.setdefault(key, []).append(chip_smoke.cuda_ms(runs[key],
+                                                                reps))
     return times
 
 
-def k4_settings(inp, card, reps):
-    """K4 per metric, super-tile and output route at N = 500,000."""
-    import torch
-
+def k4_metrics(inp, card, reps):
+    """K4 per metric at N = 500,000."""
     from vtkcloudpoint_tpu_torch.kernels import neighbor as k_nn
 
     xy = inp.motor
@@ -198,30 +229,14 @@ def k4_settings(inp, card, reps):
         valid = inp.valid
         n, d = coords.shape
         ref = k_nn.radius_count_cuda(coords, valid, eps, metric)
-        settings = ([(t, p) for t in K4_TILES for p in (False, True)]
-                    if metric == "l1_motor"
-                    else [(k_nn.RADIUS_TILES, False)])
-        times = {}
-        # in turns: forward, then backward through the settings
-        for order in (settings, settings[::-1]):
-            for tiles, partials in order:
-                got = k_nn.radius_count_cuda(coords, valid, eps, metric,
-                                             tiles, partials)
-                chip_smoke.require(torch.equal(got, ref),
-                                   f"K4 {metric} tiles {tiles} partials "
-                                   f"{partials} differs")
-                key = f"S={32 * tiles} {'partials' if partials else 'atomics'}"
-                times.setdefault(key, []).append(chip_smoke.cuda_ms(
-                    lambda: k_nn.radius_count_cuda(coords, valid, eps,
-                                                   metric, tiles, partials),
-                    reps))
-        pairs = float(valid.sum()) * (float(valid.sum()) - 1) / 2
+        ms = chip_smoke.cuda_ms(lambda: k_nn.radius_count_cuda(
+            coords, valid, eps, metric), reps)
+        nv = float(valid.sum())
+        pairs = nv * (nv - 1) / 2
         print(json.dumps({
             "k4": metric, "card": card, "n": n, "d": d, "eps": eps,
-            "median_count": float(ref.float().median()),
-            "ms": times, "pairs": pairs,
-            "ms_per_1e9_pairs": {k: min(v) / pairs * 1e9
-                                 for k, v in times.items()}}))
+            "median_count": float(ref.float().median()), "ms": ms,
+            "pairs": pairs, "ms_per_1e9_pairs": ms / pairs * 1e9}))
 
 
 def main():
@@ -236,23 +251,23 @@ def main():
     card = chip_smoke.card_name()
     print(card)
     dev = torch.device("cuda", 0)
-    lib = diagnostic_library()
+    libs = diagnostic_libraries()
     inp = chip_smoke.tier2_inputs(dev)
     both, bval = tier_tables(inp)
-    split("tier2_h32", both, bval, 32, lib, args.reps, card)
-    split("tier2_h64", both, bval, 64, lib, args.reps, card)
+    split("tier2_h32", both, bval, 32, libs, args.reps, card)
+    split("tier2_h64", both, bval, 64, libs, args.reps, card)
     split("tier2_k512_h32", both[:512].contiguous(),
-          bval[:512].contiguous(), 32, lib, args.reps, card)
-    k4_settings(inp, card, max(1, args.reps // 10))
+          bval[:512].contiguous(), 32, libs, args.reps, card)
+    k4_metrics(inp, card, max(1, args.reps // 10))
     both, bval = engine_tables(dev)
-    split("engine_h64", both, bval, 64, lib, args.reps, card)
+    split("engine_h64", both, bval, 64, libs, args.reps, card)
     rp, rv = ring_tables(dev)
-    split("rings_h32", rp, rv, 32, lib, args.reps, card)
-    split("rings_h64", rp, rv, 64, lib, args.reps, card)
+    split("rings_h32", rp, rv, 32, libs, args.reps, card)
+    split("rings_h64", rp, rv, 64, libs, args.reps, card)
     del inp, both, bval, rp, rv
     torch.cuda.empty_cache()
     both, bval = tier_tables(chip_smoke.tier3_inputs(dev))
-    split("tier3_h32", both, bval, 32, lib, args.reps, card)
+    split("tier3_h32", both, bval, 32, libs, args.reps, card)
     return 0
 
 

@@ -41,12 +41,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "vtkcp_dbscan_blocks": (_P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),
     "vtkcp_dbscan_smem_bytes": (_I, _I, _I),
-    "vtkcp_cluster_shapes": (_P, _P, _I, _I, _I, _I, _P, _P),
+    "vtkcp_cluster_shapes": (_P, _P, _I, _I, _I, _P, _P),
     "vtkcp_shapes_smem_bytes": (_I, _I),
     "vtkcp_shapes_group": (_I, _I, _I),
     "vtkcp_nn_argmin": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "vtkcp_nn_queries_per_block": (),
-    "vtkcp_radius_count": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _P),
+    "vtkcp_radius_count": (_P, _P, _I, _I, _I, _F, _P, _P),
 }
 
 _lib = None

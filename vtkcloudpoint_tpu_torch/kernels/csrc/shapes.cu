@@ -34,12 +34,18 @@
 //     clusters an SM gets (auto_group): a cluster is a chain of dependent
 //     steps, and K = 2,048 tables at one warp each leave the SMs' issue
 //     slots waiting on latency; at K = 24,576 one warp each fills them and
-//     a group's barriers only cost. tools/profile_k2.py times each G.
+//     a group's barriers only cost. tools/profile_k2.py times each G
+//     through diagnostic builds that fix it (VTKCP_K2_GROUP).
 //   - the group's first warp loads the cluster and compacts the valid
 //     slots once, in slot order (ballot + popc), with 16-byte loads (two
-//     points and two flags a lane); each wrap step scans the n valid
-//     points, not the cap slots, and a compacted index orders as its slot,
-//     so ties still go to the lowest slot.
+//     points and two flags a lane), kLoadBatch of them issued before the
+//     first is used, so a 1,024-slot row takes four round trips to memory,
+//     not sixteen; each wrap step scans the n valid points, not the cap
+//     slots, and a compacted index orders as its slot, so ties still go to
+//     the lowest slot. The load does not overlap the cluster's own
+//     shaping: a second cluster's row staged in shared memory (9 KB at cap
+//     1,024) would halve the clusters resident an SM at K = 24,576, and
+//     the other resident clusters already hide it (PERF.md).
 //   - a thread's points lie 32 G apart (G warps); it takes four at a time,
 //     written without branches so that their loads, differences and
 //     divisions overlap, and keeps its best by a strict `<` (its points
@@ -74,6 +80,7 @@
 namespace {
 
 constexpr int kThreads = 128;       // four warps a block
+constexpr int kLoadBatch = 4;       // 16-byte loads a lane in flight
 constexpr int kMaxHull = 1024;      // candidate keys hold 10 bits an index
 constexpr int kMaxSmem = 232448;    // opt-in shared memory a block
 constexpr unsigned kFull = 0xffffffffu;
@@ -517,28 +524,36 @@ __global__ void __launch_bounds__(kThreads)
     if (vec) {  // cap even, rows 16-byte aligned: two slots a lane
       const float4* p4 = reinterpret_cast<const float4*>(pk);
       const uint16_t* v2 = reinterpret_cast<const uint16_t*>(vk);
-      for (int s0 = 0; s0 < cap; s0 += 64) {
-        const int s = s0 + 2 * lane;
-        float4 p = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        unsigned vv = 0u;
-        if (s < cap) {
-          p = p4[s >> 1];
-          vv = v2[s >> 1];
+      for (int s0 = 0; s0 < cap; s0 += 64 * kLoadBatch) {
+        float4 p[kLoadBatch];
+        unsigned vv[kLoadBatch];
+#pragma unroll
+        for (int u = 0; u < kLoadBatch; ++u) {
+          const int s = s0 + 64 * u + 2 * lane;
+          p[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          vv[u] = 0u;
+          if (s < cap) {
+            p[u] = p4[s >> 1];
+            vv[u] = v2[s >> 1];
+          }
         }
-        const bool ok0 = (vv & 0xffu) != 0u;
-        const bool ok1 = (vv >> 8) != 0u;
-        const unsigned b0 = __ballot_sync(kFull, ok0);
-        const unsigned b1 = __ballot_sync(kFull, ok1);
-        const int j = n + __popc(b0 & lt) + __popc(b1 & lt);
-        if (ok0) {
-          x[j] = p.x;
-          y[j] = p.y;
+#pragma unroll
+        for (int u = 0; u < kLoadBatch; ++u) {
+          const bool ok0 = (vv[u] & 0xffu) != 0u;
+          const bool ok1 = (vv[u] >> 8) != 0u;
+          const unsigned b0 = __ballot_sync(kFull, ok0);
+          const unsigned b1 = __ballot_sync(kFull, ok1);
+          const int j = n + __popc(b0 & lt) + __popc(b1 & lt);
+          if (ok0) {
+            x[j] = p[u].x;
+            y[j] = p[u].y;
+          }
+          if (ok1) {
+            x[j + ok0] = p[u].z;
+            y[j + ok0] = p[u].w;
+          }
+          n += __popc(b0) + __popc(b1);
         }
-        if (ok1) {
-          x[j + ok0] = p.z;
-          y[j + ok0] = p.w;
-        }
-        n += __popc(b0) + __popc(b1);
       }
     } else {
       for (int s0 = 0; s0 < cap; s0 += 32) {
@@ -564,6 +579,15 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   group_sync<G>(g);
+#ifdef VTKCP_K2_LOAD_ONLY
+  // diagnostic builds only (tools/profile_k2.py): the load and compaction
+  // alone, the most that overlapping them with the shaping could hide
+  if (t == 0) {
+    out[(size_t)k * 6] = (float)s_n[g];
+    out[(size_t)k * 6 + 1] = x[0] + y[s_n[g] > 0 ? s_n[g] - 1 : 0];
+  }
+  return;
+#endif
   cluster_shape<G>(x, y, hx, hx + h, s_n[g], h, s_x0[g], s_y0[g], t, g,
                    red + 2 * G * g, out + (size_t)k * 6, prof);
 }
@@ -595,6 +619,10 @@ int block_bytes(int cap, int h) {
 // fastest on 2 and the tier-3 tables (K = 24,576) on 1; tools/profile_k2.py
 // times each setting at those shapes and at K = 512.
 int auto_group(int K, int cap, int h) {
+#ifdef VTKCP_K2_GROUP
+  // diagnostic builds only (tools/profile_k2.py): G fixed
+  return VTKCP_K2_GROUP;
+#endif
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
@@ -615,26 +643,24 @@ extern "C" int vtkcp_shapes_smem_bytes(int cap, int h) {
   return block_bytes<4>(cap, h);
 }
 
-// The warps a cluster that a launch with group = 0 takes (auto_group).
+// The warps a cluster that a launch of K clusters takes (auto_group).
 extern "C" int vtkcp_shapes_group(int K, int cap, int h) {
   return auto_group(K, cap, h);
 }
 
 // points f32 [K, cap, 2] contiguous, valid u8 [K, cap]; max_hull = h <=
-// 1,024; group: warps a cluster (1, 2 or 4; 0 chooses, auto_group); out
-// f32 [K, 6] = center x, center y, radius, long side, short side, area.
-// Returns a cudaError_t.
+// 1,024; out f32 [K, 6] = center x, center y, radius, long side, short
+// side, area. Returns a cudaError_t.
 extern "C" int vtkcp_cluster_shapes(const void* points, const void* valid,
-                                    int K, int cap, int h, int group,
-                                    void* out, void* stream) {
+                                    int K, int cap, int h, void* out,
+                                    void* stream) {
   if (K <= 0) return cudaSuccess;
   if (cap <= 0 || h <= 0 || h > kMaxHull) return cudaErrorInvalidValue;
   const float* p = (const float*)points;
   const uint8_t* v = (const uint8_t*)valid;
   float* o = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  if (group == 0) group = auto_group(K, cap, h);
-  switch (group) {
+  switch (auto_group(K, cap, h)) {
     case 1:
       if (block_bytes<1>(cap, h) > kMaxSmem) return cudaErrorInvalidValue;
       return launch<1>(p, v, K, cap, h, o, s);

@@ -36,9 +36,6 @@ NN_BLOCKS_PER_SM = 4
 NN_MIN_SPLIT = 128
 RADIUS_METRICS = {"l1_motor": 0, "signed_sum_xy": 1, "l2_xyz": 2,
                   "l2_xy": 2}
-# K4's super-tile side in 32-point tiles: S = 2,048 points a block
-# (tools/profile_k2.py times others)
-RADIUS_TILES = 64
 
 launches = 0
 radius_launches = 0
@@ -154,14 +151,12 @@ def radius_count_plain(coords, valid, eps: float, metric: str = "l1_motor",
     return torch.cat(out)
 
 
-def radius_count_cuda(coords, valid, eps: float, metric: str = "l1_motor",
-                      tiles: int = RADIUS_TILES, partials: bool = False):
+def radius_count_cuda(coords, valid, eps: float, metric: str = "l1_motor"):
     """Launch K4 on CUDA tensors coords f32 [N, D] (D <= 3) and valid bool
-    [N]: count i32[N]. Each unordered pair is tested once, in super-tiles
-    of 32 ``tiles`` points a side; their counts leave by global atomics,
-    or with ``partials`` as i32 [ceil(N / S), N] scratch summed by a
-    second kernel (tools/profile_k2.py times both). Launches on the current
-    stream and does not synchronise."""
+    [N]: count i32[N], equal to radius_count_plain for any coordinates (a
+    NaN distance is never within). Each unordered pair is tested once, in
+    super-tiles of 2,048 points a side; their counts leave by global
+    atomics. Launches on the current stream and does not synchronise."""
     global radius_launches
     build.require_cuda("radius_count_cuda", coords=coords, valid=valid)
     if coords.dtype != torch.float32 or valid.dtype != torch.bool:
@@ -175,19 +170,13 @@ def radius_count_cuda(coords, valid, eps: float, metric: str = "l1_motor",
         raise ValueError("radius_count_cuda: valid must be [N]")
     if n >= 2**31:
         raise ValueError("radius_count_cuda: N must fit in int32")
-    if not 1 <= tiles <= 256:
-        raise ValueError("radius_count_cuda: tiles must be in 1 .. 256")
     thr = _radius_threshold(eps, metric)
     lib = build.load()
     out = torch.empty(n, dtype=torch.int32, device=coords.device)
-    strips = -(-n // (32 * tiles))
-    scratch = (torch.empty((strips, n), dtype=torch.int32,
-                           device=coords.device) if partials else None)
     with torch.cuda.device(coords.device):
         err = lib.vtkcp_radius_count(
             coords.data_ptr(), valid.data_ptr(), n, d,
-            RADIUS_METRICS[metric], thr, tiles,
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            RADIUS_METRICS[metric], thr, out.data_ptr(),
             build.stream_handle(coords.device))
     build.check(err, "vtkcp_radius_count")
     radius_launches += 1

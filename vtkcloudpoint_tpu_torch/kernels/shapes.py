@@ -19,28 +19,17 @@ SOURCE = "vtkcloudpoint_tpu_torch/kernels/csrc/shapes.cu"
 REPLACES = "vtkcloudpoint_tpu/ops/pallas/shapes_kernel.py:273"
 MAX_HULL = 1024            # a candidate key holds 10 bits an index
 MAX_SMEM = 232448          # H100: opt-in shared memory per block
-GROUPS = (0, 1, 2, 4)      # warps a cluster; 0: the kernel chooses
 
 launches = 0
 
 
-def shapes_cuda(points, valid, max_hull: int = 64, group: int = 0):
+def shapes_cuda(points, valid, max_hull: int = 64):
     """Launch K2 on CUDA tensors points f32 [K, cap, 2] and valid bool
     [K, cap]. Returns (center_x, center_y, radius, len_long, len_short,
-    area), each f32[K], before cluster_shapes' small-cluster zeroing.
-    ``group`` warps shape a cluster (0: the most with which every cluster
-    is resident at once; tools/profile_k2.py times each). Launches on the
-    current stream and does not synchronise."""
+    area), each f32[K], before cluster_shapes' small-cluster zeroing. The
+    kernel takes the warps a cluster from K and the card's SM count.
+    Launches on the current stream and does not synchronise."""
     global launches
-    out = launch(points, valid, max_hull, group=group)
-    launches += 1
-    return tuple(out.unbind(dim=1))
-
-
-def launch(points, valid, max_hull: int = 64, lib=None, group: int = 0):
-    """Check the arguments and launch ``vtkcp_cluster_shapes`` of ``lib``:
-    the kernel library (None), or the diagnostic build of
-    tools/profile_k2.py. Returns out f32 [K, 6]."""
     build.require_cuda("shapes_cuda", points=points, valid=valid)
     if points.dtype != torch.float32 or valid.dtype != torch.bool:
         raise ValueError("shapes_cuda: points must be float32 and valid "
@@ -53,9 +42,7 @@ def launch(points, valid, max_hull: int = 64, lib=None, group: int = 0):
         raise ValueError("shapes_cuda: valid must be [K, cap]")
     if not 1 <= max_hull <= MAX_HULL:
         raise ValueError(f"shapes_cuda: max_hull must be in 1 .. {MAX_HULL}")
-    if group not in GROUPS:
-        raise ValueError(f"shapes_cuda: group must be one of {GROUPS}")
-    lib = lib if lib is not None else build.load()
+    lib = build.load()
     smem = lib.vtkcp_shapes_smem_bytes(max(cap, 1), max_hull)
     if smem > MAX_SMEM:
         raise ValueError(f"shapes_cuda: cap {cap} needs {smem} bytes of "
@@ -64,6 +51,7 @@ def launch(points, valid, max_hull: int = 64, lib=None, group: int = 0):
     with torch.cuda.device(points.device):
         err = lib.vtkcp_cluster_shapes(
             points.data_ptr(), valid.data_ptr(), K, cap, max_hull,
-            group, out.data_ptr(), build.stream_handle(points.device))
+            out.data_ptr(), build.stream_handle(points.device))
     build.check(err, "vtkcp_cluster_shapes")
-    return out
+    launches += 1
+    return tuple(out.unbind(dim=1))
