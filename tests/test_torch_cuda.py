@@ -634,3 +634,103 @@ def test_halo_union_on_card_equals_cpu(gpu):
     assert int(a.n_clusters) == int(b.n_clusters) > 0
     for key in ("remap", "n_after", "idmap", "overflow"):
         assert torch.equal(ua[key], ub[key].cpu()), key
+
+
+def _slam_scans(seed=0, s=16, n=512, n_marks=8):
+    """A landmark world (blobs and background) seen from s poses along a
+    loop, float32 scans with 2 mm of noise."""
+    rng = np.random.default_rng(seed)
+    marks = rng.uniform(-8, 8, (n_marks, 3)) * [1, 1, 0.2]
+    per = (2 * n // 3) // n_marks
+    blob = (marks[:, None] + 0.06 * rng.standard_normal((n_marks, per, 3))
+            ).reshape(-1, 3)
+    world = np.concatenate([blob, rng.uniform(-8, 8, (n - len(blob), 3))
+                            * [1, 1, 0.2]])
+    th = 2 * np.pi * np.arange(s) / s
+    scans = []
+    for a in th:
+        r = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                      [0, 0, 1]])
+        t = 2.0 * np.array([np.cos(a), np.sin(a), 0.0])
+        scans.append((world - t) @ r + 0.002 * rng.standard_normal((n, 3)))
+    return np.stack(scans).astype(np.float32)
+
+
+def test_nn_kernel_tier4_shape(gpu):
+    """N = M = 2,048, the shape of every odometry and closure ICP of the
+    tier-4 job: scan k + 1 against scan k of a landmark world."""
+    scans = torch.from_numpy(_slam_scans(1, s=2, n=2048)).to(gpu)
+    rv = torch.ones(2048, dtype=torch.bool, device=gpu)
+    ki, kd = k_nn.nn_cuda(scans[1], scans[0], rv)
+    pi, pd = k_nn.nn_plain(scans[1], scans[0], rv)
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
+
+
+def test_slam_pipeline_ba_on_card_equals_plain(gpu):
+    """slam_pipeline_ba through K3 and with the plain versions on the card:
+    every pose, cost and n_landmarks bit-equal (K3 equals nn_plain bit for
+    bit; every segment sum is deterministic); K3 launched."""
+    from vtkcloudpoint_tpu_torch.slam.trajectory import slam_pipeline_ba
+
+    scans = torch.from_numpy(_slam_scans()).to(gpu)
+    valid = torch.ones(scans.shape[:2], dtype=torch.bool, device=gpu)
+    runs = {}
+    for backend in ("torch", "auto"):
+        k_nn.launches = 0
+        out = slam_pipeline_ba(scans, valid, ICPConfig(max_iterations=20,
+                                                       tol=1e-10),
+                               loop_radius=2.5, gn_iterations=4,
+                               landmark_eps=0.4, landmark_min_pts=6,
+                               max_clusters_per_scan=16, ba_iterations=4,
+                               backend=backend)
+        runs[backend] = (out, k_nn.launches)
+    (a, la), (b, lb) = runs["torch"], runs["auto"]
+    assert la == 0 and lb > 0
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x.r, y.r) and torch.equal(x.t, y.t)
+    for key in ("graph_cost", "ba_cost", "n_landmarks"):
+        assert torch.equal(a[3][key], b[3][key]), key
+    assert int(b[3]["n_landmarks"]) >= 4
+
+
+def test_slam_checkpoint_kill_resume_on_card(gpu, tmp_path):
+    """Killed after one chunk and resumed: bit-equal to the uninterrupted
+    run on the card."""
+    from vtkcloudpoint_tpu_torch.slam.trajectory import \
+        slam_pipeline_checkpointed
+
+    scans = torch.from_numpy(_slam_scans(2, s=10, n=256)).to(gpu)
+    valid = torch.ones(scans.shape[:2], dtype=torch.bool, device=gpu)
+    kw = dict(icp_cfg=ICPConfig(max_iterations=20, tol=1e-10), every=3,
+              loop_radius=2.5, gn_iterations=4)
+    full = slam_pipeline_checkpointed(scans, valid, str(tmp_path / "a"),
+                                      **kw)
+    assert slam_pipeline_checkpointed(scans, valid, str(tmp_path / "b"),
+                                      max_chunks=1, **kw) is None
+    resumed = slam_pipeline_checkpointed(scans, valid, str(tmp_path / "b"),
+                                         **kw)
+    for x, y in zip(full[:2], resumed[:2]):
+        assert torch.equal(x.r, y.r) and torch.equal(x.t, y.t)
+        assert x.r.is_cuda
+    assert torch.equal(full[2], resumed[2])
+
+
+def test_voxel_downsample_on_card_repeats(gpu):
+    """Two runs on the card give the same bits (the float64 per-voxel sums
+    are sorted by slot, not left to the order of atomics), and equal the
+    CPU's occupancy; centroids rtol 1e-6."""
+    from vtkcloudpoint_tpu_torch.ops.voxel import voxel_downsample
+
+    rng = np.random.default_rng(6)
+    pts = (rng.uniform(-30, 30, (200_000, 3)) * [1, 1, 0.2]).astype(
+        np.float32)
+    valid = rng.random(200_000) < 0.95
+    p, v = torch.from_numpy(pts).to(gpu), torch.from_numpy(valid).to(gpu)
+    a = voxel_downsample(p, v, 0.2, 16384)
+    b = voxel_downsample(p, v, 0.2, 16384)
+    c = voxel_downsample(torch.from_numpy(pts), torch.from_numpy(valid), 0.2,
+                         16384)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert torch.equal(a[1].cpu(), c[1]) and int(a[2]) == int(c[2])
+    torch.testing.assert_close(a[0].cpu(), c[0], rtol=1e-6, atol=1e-6)

@@ -51,7 +51,10 @@ def test_slice_modules_present():
                 "data.pointbatch", "io.ingest", "register.matching",
                 "register.coarse", "cluster.seeded",
                 "workflows.fixed_points", "engine", "cluster.grid",
-                "cluster.halo_fusion", "register.nn_grid"):
+                "cluster.halo_fusion", "register.nn_grid", "ops.voxel",
+                "ops.linalg", "ops.polygon", "utils.checkpoint",
+                "utils.profiling", "utils.resilience", "slam.posegraph",
+                "slam.ba", "slam.trajectory", "slam.scan2map"):
         assert f"vtkcloudpoint_tpu_torch.{mod}" in SLICE_MODULES
     for src in build.SOURCES:
         assert (build.CSRC / src).is_file()
@@ -59,7 +62,7 @@ def test_slice_modules_present():
 
 # what runs the port on the card besides the package itself
 PORT_SCRIPTS = ("chip_smoke", "tools.engine_session", "tools.tier3_inputs",
-                "tools.profile_k1", "tools.profile_k2")
+                "tools.tier4_inputs", "tools.profile_k1", "tools.profile_k2")
 
 
 def test_port_imports_no_jax():
@@ -337,14 +340,15 @@ def test_multi_device_parts_raise_naming_item_7():
 
 
 def test_no_not_implemented_left_but_multi_device():
-    """grep NotImplementedError over the port: the grid engines, the halo
-    union and the shape variants no longer raise it; the two multi-device
-    entry points do."""
-    hits = sorted(f"{p.relative_to(PACKAGE)}"
-                  for p in PACKAGE.rglob("*.py")
-                  for line in p.read_text().splitlines()
-                  if "NotImplementedError" in line)
-    assert hits == ["cluster/halo_fusion.py", "engine.py"]
+    """grep NotImplementedError over the port: only the multi-device entry
+    points raise it -- the sharded halo buffers and Engine.cluster_sharded,
+    the sharded pose-graph and BA solvers and slam_pipeline_ba(mesh=)."""
+    hits = sorted({f"{p.relative_to(PACKAGE)}"
+                   for p in PACKAGE.rglob("*.py")
+                   for line in p.read_text().splitlines()
+                   if "NotImplementedError" in line})
+    assert hits == ["cluster/halo_fusion.py", "engine.py", "slam/ba.py",
+                    "slam/trajectory.py"]
     for name in hits:
         assert "item 7" in (PACKAGE / name).read_text(), name
 

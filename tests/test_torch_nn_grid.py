@@ -148,3 +148,38 @@ def test_icp_grid_float64_matches_jax(iterations):
                                atol=1e-12)
     assert int(rb.iterations) == int(ra.iterations) == iterations
     assert int(ob) == int(oa) == 0
+
+
+def test_float64_cells_use_the_double_reciprocal():
+    """In float64 XLA divides by the static cell size as a multiplication by
+    the double 1 / cell, not by the float32 reciprocal: references next to
+    multiples of the cell size get JAX's cell ids, and the queries JAX's
+    neighbours (the port took the float32 reciprocal for every dtype until
+    cluster.grid.reciprocal; this failed on sc)."""
+    rng = np.random.default_rng(7)
+    cell = 0.3
+    inv32 = np.float64(np.float32(1.0) / np.float32(cell))
+    x = rng.integers(1, 30, 4000) * cell
+    cand = np.concatenate([x, np.nextafter(x, -np.inf),
+                           np.nextafter(x, np.inf)])
+    tricky = cand[np.floor(cand * (1.0 / cell)) != np.floor(cand * inv32)]
+    assert len(tricky) >= 100
+    ref = rng.uniform(0, 9, (800, 3))
+    ref[0] = 0.0                      # the grid origin: x - lo is exact
+    ref[1:101, 0] = tricky[:100]
+    ref[101:201, 2] = tricky[:100]
+    rv = np.ones(800, bool)
+    query = ref[rng.integers(0, 800, 300)] + 0.01 * rng.standard_normal(
+        (300, 3))
+    jgrid, a = _jax_nn(jnp.asarray(query), jnp.asarray(ref), jnp.asarray(rv),
+                       cell, 32, 300)
+    tref, tval = torch.from_numpy(ref), torch.from_numpy(rv)
+    tgrid = tn.build_nn_grid(tref, tval, cell)
+    for f in ("sc", "order", "dims", "strides"):
+        np.testing.assert_array_equal(np.asarray(getattr(jgrid, f)),
+                                      getattr(tgrid, f).numpy(), err_msg=f)
+    b = tn.nn_grid(tgrid, torch.from_numpy(query), tref, tval, cell,
+                   cell_cap=32, fallback_cap=300)
+    np.testing.assert_array_equal(np.asarray(a[0]), b[0].numpy(), "idx")
+    np.testing.assert_allclose(b[1].numpy(), np.asarray(a[1]), rtol=1e-12)
+    np.testing.assert_array_equal(np.asarray(a[2]), b[2].numpy(), "resolved")

@@ -14,9 +14,9 @@ being candidates: ``overflow`` counts them (exact iff it is 0).
 Arithmetic follows the compiled JAX program:
 - the int32 hash wraps in two's complement. Torch computes it in int64 and
   wraps explicitly (``wrap32``); the mask is applied after the add;
-- XLA turns the division by the static eps into a multiplication by the
-  float32 reciprocal, so cell coordinates here are
-  ``floor((x - lo) * f32(1 / f32(eps)))``;
+- XLA turns the division by the static eps into a multiplication by its
+  reciprocal in the coordinates' precision, so float32 cell coordinates
+  here are ``floor((x - lo) * f32(1 / f32(eps)))`` (``reciprocal``);
 - the distance rule is the grid's own: L1 ``sum |d|`` or L2
   ``sqrt(sum d^2)`` from direct differences, summed left to right, against
   eps rounded to float32;
@@ -55,8 +55,16 @@ def wrap32(v):
 
 def reciprocal32(size: float) -> float:
     """f32(1 / f32(size)): the factor XLA multiplies by where the JAX
-    package divides by a static cell size."""
+    package divides float32 values by a static cell size."""
     return float(np.float32(1.0) / np.float32(size))
+
+
+def reciprocal(size: float, dtype) -> float:
+    """The factor XLA multiplies values of ``dtype`` by where the JAX
+    package divides them by a static size: 1 / size in the values' own
+    precision (reciprocal32 for float32, the double 1 / size for
+    float64)."""
+    return 1.0 / size if dtype == torch.float64 else reciprocal32(size)
 
 
 def cell_hash(cidx, primes):
@@ -121,7 +129,7 @@ def dbscan_grid(coords, valid, eps: float, min_pts: int,
     n_off = len(deltas)
     self_idx = list(product((-1, 0, 1), repeat=ndim)).index((0,) * ndim)
     lo = torch.where(valid[:, None], coords, 1e30).amin(dim=0)
-    cidx = torch.floor((coords - lo) * reciprocal32(eps)).long()
+    cidx = torch.floor((coords - lo) * reciprocal(eps, coords.dtype)).long()
     raw = cell_hash(cidx, _PRIMES)
     cell = torch.where(valid, raw & _MASK, _INT_MAX)
     sc, order = torch.sort(cell, stable=True)

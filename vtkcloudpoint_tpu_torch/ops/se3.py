@@ -1,5 +1,5 @@
 """SE(3) utilities: Horn quaternion / Kabsch SVD closed-form rigid alignment
-(port of vtkcloudpoint_tpu.ops.se3).
+and the SO(3) exponential and logarithm (port of vtkcloudpoint_tpu.ops.se3).
 
 The correct Horn/Kabsch maths, not the managed reference's bugs B1-B3
 (docs/PARITY.md). Matmuls run in full float32 (device.py turns TF32 off).
@@ -88,12 +88,64 @@ def compose(r1, t1, r0, t0):
     return r1 @ r0, r1 @ t0 + t1
 
 
+def to_matrix4(r, t):
+    """4x4 homogeneous matrix (vtk icp.GetMatrix() layout, FrmMain.cs:862)."""
+    bottom = torch.zeros((1, 4), dtype=r.dtype, device=r.device)
+    bottom[0, 3] = 1.0
+    return torch.cat([torch.cat([r, t[:, None]], dim=1), bottom])
+
+
 def rotz(theta):
     theta = torch.as_tensor(theta)
     c, s = torch.cos(theta), torch.sin(theta)
     z, o = torch.zeros_like(c), torch.ones_like(c)
     return torch.stack([torch.stack([c, -s, z]), torch.stack([s, c, z]),
                         torch.stack([z, z, o])])
+
+
+def so3_hat(w):
+    """[3] -> skew-symmetric [3, 3]."""
+    z = torch.zeros_like(w[0])
+    return torch.stack([torch.stack([z, -w[2], w[1]]),
+                        torch.stack([w[2], z, -w[0]]),
+                        torch.stack([-w[1], w[0], z])])
+
+
+def so3_exp(w):
+    """Rodrigues: rotation vector [3] -> R [3, 3] (Taylor-safe near 0).
+
+    Double-where guard: inside the small region the sqrt's INPUT is
+    replaced by 1, not just its output, so forward-mode Jacobians stay
+    finite at w = 0 (d sqrt(w.w) is inf there, and inf * 0 is NaN). The
+    guard constants are float32-representable."""
+    theta2 = torch.dot(w, w)
+    small = theta2 <= 1e-12
+    t2s = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(t2s)
+    k = so3_hat(w)
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / t2s)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    return eye + a * k + b * (k @ k)
+
+
+def so3_log(r):
+    """R [3, 3] -> rotation vector [3], angle in [0, pi).
+
+    atan2 form with a Taylor branch, so Jacobians stay finite at theta -> 0
+    (an arccos form has an infinite derivative there); the sqrt's input is
+    replaced inside the small region as in so3_exp. Angles at exactly pi
+    are degenerate (w ~= 0)."""
+    w = torch.stack([r[2, 1] - r[1, 2], r[0, 2] - r[2, 0], r[1, 0] - r[0, 1]])
+    n2 = torch.dot(w, w)
+    small = n2 < 1e-12
+    n2s = torch.where(small, torch.ones_like(n2), n2)
+    sin_t = 0.5 * torch.sqrt(n2s)
+    cos_t = torch.clamp((torch.trace(r) - 1.0) / 2.0, -1.0, 1.0)
+    theta = torch.atan2(sin_t, cos_t)
+    # small branch: theta ~= |w| / 2, so theta^2 / 12 ~= n2 / 48
+    scale = torch.where(small, 0.5 + n2 / 48.0, theta / (2.0 * sin_t))
+    return scale * w
 
 
 def random_rotation(generator, dtype=torch.float32):

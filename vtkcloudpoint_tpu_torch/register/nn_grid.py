@@ -15,7 +15,8 @@ box); each query inspects its 27-cell stencil. Exactness contract:
 The stencil argmin runs over stencil-offset x slot order (offsets nested
 dx, dy, dz), not over original indices, so ``idx`` equals JAX's at exact
 ties. As in the compiled JAX program, the division by the cell size is a
-multiplication by its float32 reciprocal. Plain PyTorch: the JAX package
+multiplication by its reciprocal in the points' precision
+(``cluster.grid.reciprocal``). Plain PyTorch: the JAX package
 runs this as XLA, with no Pallas kernel.
 """
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..cluster.grid import reciprocal32
+from ..cluster.grid import reciprocal
 from ..config import ICPConfig
 from .icp import icp_loop, nn_correspond
 
@@ -48,7 +49,7 @@ class NNGrid(NamedTuple):
 def _cell_ids(pts, origin, dims, strides, cell_size: float):
     """Cell id per point; coordinates clamp to one ghost layer around the
     grid, so ids stay unique on [-1, dims + 1] per axis."""
-    c = torch.floor((pts - origin) * reciprocal32(cell_size)).long()
+    c = torch.floor((pts - origin) * reciprocal(cell_size, pts.dtype)).long()
     c = torch.maximum(torch.minimum(c, dims + 1), torch.full_like(c, -1))
     return (c[:, 0] + 1) * strides[0] + (c[:, 1] + 1) * strides[1] \
         + (c[:, 2] + 1)
@@ -58,7 +59,8 @@ def build_nn_grid(ref, ref_valid, cell_size: float) -> NNGrid:
     """Sort the target by cell (one O(M log M) build)."""
     lo = torch.where(ref_valid[:, None], ref, 1e30).amin(dim=0)
     hi = torch.where(ref_valid[:, None], ref, -1e30).amax(dim=0)
-    dims = torch.floor((hi - lo) * reciprocal32(cell_size)).long() + 1
+    dims = torch.floor((hi - lo) * reciprocal(cell_size, ref.dtype)).long()
+    dims = dims + 1
     dims = dims.clamp_min(1)
     # strides over the padded box (+3 per axis: two ghost layers and the
     # clamp slot)
@@ -78,7 +80,8 @@ def _stencil_query(grid: NNGrid, query, cell_size: float, cell_cap: int,
     global nearest neighbour."""
     m = grid.pts.shape[0]
     dev = query.device
-    qc = torch.floor((query - grid.origin) * reciprocal32(cell_size)).long()
+    qc = torch.floor((query - grid.origin) * reciprocal(cell_size,
+                                                       query.dtype)).long()
     qc = torch.maximum(torch.minimum(qc, grid.dims + 1),
                        torch.full_like(qc, -1))
     sx, sy = grid.strides[0], grid.strides[1]
