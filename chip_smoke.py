@@ -53,7 +53,18 @@
    the plain versions on the card (equal bit for bit), and in float64
    against the JAX package's float64 CPU run (tools/jax_reference_tier4.py);
    holds K3 against its plain version at N = M = 2,048;
-11. prints a JSON line describing every kernel, and last
+11. runs the multi-device paths (parallel/) on a one-rank NCCL process
+   group (world size 1: NCCL refuses two ranks on one card, so the
+   multi-rank semantics are held on the CPU by tests/test_torch_sharded.py
+   over gloo): (a) sharded_blocked_dbscan on the tier-3 blocks, whose
+   labels equal the tier-3 job's; (b) Engine.cluster_sharded on the Engine
+   session in the modes of tools/sharded_session.py, equal to the port's
+   single-device halo chain and to the JAX package's float32 CPU run
+   (tools/jax_reference_sharded.py); (c) sharded_icp at tier 3's
+   registration; (d) sharded_icp_grid at grid ICP's size, grid and brute
+   (K3) locators; (e) slam_pipeline_ba(mesh=...) on the tier-4 scans; K1
+   and K3 must launch on these paths;
+12. prints a JSON line describing every kernel, and last
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line
@@ -176,6 +187,25 @@ F64_POSE_TOL = 1e-9             # float64 poses against JAX's float64 run
 # so its float32 neighbours are not a bit-level reference for the port's
 # direct differences.
 F32_GAP_FACTOR = 5.0
+# The JAX package's Engine.cluster_sharded on the Engine session at the
+# settings of tools/sharded_session.py, one-device mesh, float32 on the CPU,
+# from `JAX_PLATFORMS=cpu python3 tools/jax_reference_sharded.py` (jax
+# 0.9.0; 190, 325, 210 and 203 s a mode on an 8-core CPU): n_total and
+# the SHA-256 of the int32 [B, cap] labels per mode. Every mode's overflow
+# counters were 0.
+_SHARDED_SHA = (
+    "2e7f31cf2bffaa6309dfe438f1185268bee54bdccdb644863e3ba15b17b320dd")
+JAX_SHARDED = {
+    "hier": dict(n_total=420, label_sha256=_SHARDED_SHA),
+    "ring": dict(n_total=420, label_sha256=_SHARDED_SHA),
+    "hier_dist_split": dict(n_total=420, label_sha256=_SHARDED_SHA),
+    "centroid_merge": dict(
+        n_total=418, label_sha256=(
+            "bc9fe0e20c5e0a7f320d251b9cd9c257051a3b5d8bc1ccaf4af75bba2185da58")),
+}
+# sharded ICP against the single-device ICP on the card: the moment-form
+# Horn solve against horn_solve's centred one, float32
+SHARDED_ICP_TOL = 1e-5
 TIER4_STAGES = ("odometry", "closures", "posegraph", "observations", "ba")
 
 N_POINTS = 500_000
@@ -400,14 +430,20 @@ def hold_k3(query, ref, ref_valid, where):
     n, m = query.shape[0], ref.shape[0]
     qpb = build.load().vtkcp_nn_queries_per_block()
     valid_ref = ref[ref_valid].contiguous()
+    # the distance matrix is held to 2^30 floats (4 GiB) a call: one call
+    # up to 4,096 x 100,000, queries in slices beyond
+    rows = max(1, (1 << 30) // max(1, valid_ref.shape[0]))
+    # one timed library run where it takes seconds (N * M beyond 5e8)
+    lib_reps = 5 if n * valid_ref.shape[0] <= 500_000_000 else 1
 
     def library():
         # the nearest library composition (direct differences); the port
         # never calls it
-        return torch.cdist(query, valid_ref, compute_mode=(
-            "donot_use_mm_for_euclid_dist")).min(dim=1)
+        return torch.cat([torch.cdist(q, valid_ref, compute_mode=(
+            "donot_use_mm_for_euclid_dist")).min(dim=1).values
+            for q in query.split(rows)])
 
-    lib_d = library().values
+    lib_d = library()
     require(torch.allclose(lib_d * lib_d, kd2, rtol=1e-5, atol=1e-12),
             f"torch.cdist's nearest distances differ from K3's ({where})")
     return {"max_abs_err": float((kd2 - pd2).abs().max()),
@@ -415,7 +451,8 @@ def hold_k3(query, ref, ref_valid, where):
             "plain_ms": cuda_ms(lambda: k_nn.nn_plain(*args, 1024), 3),
             **bound(n * 12 + m * 13 + n * 8,
                     n * int(ref_valid.sum()) * NN_PAIR_INSTR),
-            "library_ms": cuda_ms(library, 5),
+            "library_ms": cuda_ms(library, lib_reps),
+            "library_calls": -(-n // rows), "library_reps": lib_reps,
             "grid": "%d x %d blocks" % (-(-n // qpb), k_nn.nn_splits(
                 n, m, qpb, k_nn.NN_BLOCKS_PER_SM * k_nn.sm_count(
                     query.device.index))[0]),
@@ -916,7 +953,7 @@ def tier3_phase(dev, card, kernels):
     """(a) The 5M-point tier-3 job through the kernels and with the plain
     versions, checked against each other and the JAX CPU constants; K1-K3
     held to their plain versions at its shapes; the noise stage on the grid
-    engine against dense_chunked."""
+    engine against dense_chunked. Returns (inputs, the job's namespace)."""
     import torch
 
     from vtkcloudpoint_tpu_torch.cluster.fusion import merge_blocks
@@ -1000,6 +1037,7 @@ def tier3_phase(dev, card, kernels):
                       "job_wall_ms": walls,
                       "noise_stage_ms": noise_ms,
                       "noise_labels_equal": True}))
+    return inp, s
 
 
 def tier4_inputs(dev):
@@ -1022,7 +1060,7 @@ def tier4_inputs(dev):
                       tol=TIER4["icp_tol"]))
 
 
-def tier4_job(inp, dtype, backend="auto", timer=None):
+def tier4_job(inp, dtype, backend="auto", timer=None, mesh=None):
     """benchmarks/tier4_slam.py's job through the port's slam_pipeline_ba in
     ``dtype``: odometry, closures, pose graph, observations, BA, each stage
     under ``timer`` if given. Returns the three trajectories, the stats,
@@ -1041,7 +1079,8 @@ def tier4_job(inp, dtype, backend="auto", timer=None):
         landmark_eps=T["landmark_eps"],
         landmark_min_pts=T["landmark_min_pts"],
         max_clusters_per_scan=T["max_clusters_per_scan"],
-        ba_iterations=T["ba_iterations"], backend=backend, timer=timer)
+        ba_iterations=T["ba_iterations"], mesh=mesh, backend=backend,
+        timer=timer)
     li, lj = detect_loop_closures(odo, T["loop_radius"])
     trajs = {"odometry": odo, "posegraph": pg, "ba": ba}
     rt, tt = inp.r_true.to(dtype), inp.t_true.to(dtype)
@@ -1097,6 +1136,8 @@ def tier4_phase(dev, card, kernels):
     (d) scan_to_map (grid NN, K3 fallback) in float32 through K3, equal to
         the plain run, and in float64 against JAX's float64 run;
     (e) K3 against its plain version at the odometry shape, N = M = 2,048.
+    Returns the inputs, JAX's reference, the float64 run and the float32
+    ATE tolerance.
     """
     import torch
 
@@ -1223,6 +1264,7 @@ def tier4_phase(dev, card, kernels):
         "f64_pose_gap": s2m_gap64, "equal_plain_run": True,
         "launches": s2m_launches, "wall_s": s2m_s, "f64_wall_s": s2m64_s,
         "phase_s": time.perf_counter() - t_phase}))
+    return SimpleNamespace(inp=inp, ref=ref, f64=f64, f32_tol=f32_tol)
 
 
 def grid_engine_phase(dev, card):
@@ -1267,7 +1309,7 @@ def icp_grid_phase(dev, card, kernels):
     source points, and against the JAX CPU constants: in float64 (the plain
     versions, K3 being float32 only) to F64_ICP_GRID_TOL, so the loop,
     weights and composition are JAX's; in float32 R to JAX's float32 run
-    and t to JAX's float64 answer."""
+    and t to JAX's float64 answer. Returns the float32 grid ICP result."""
     import torch
 
     from tools.tier3_inputs import NN, nn_cell, nn_inputs
@@ -1355,6 +1397,7 @@ def icp_grid_phase(dev, card, kernels):
         "icp_error": float(res.error), "launches": launches,
         "build_ms": build_ms, "grid_wall_s": grid_s,
         "brute_wall_s": brute_s, "f64_wall_s": f64_s}))
+    return res
 
 
 def halo_phase(inp, card):
@@ -1470,6 +1513,276 @@ def shape_variants_phase(s, card):
                       "equal_on_cpu": True, "k2_ms": cuda_ms(
                           lambda: shapes(*card_in), 5),
                       "launches": launches, **report}))
+
+
+def _timed(fn):
+    """(fn(), wall s, CUDA-event ms) of one call on the card."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end)
+
+
+def _scatter_points(label, pidx, n):
+    """Block-layout labels back to point order (-1 slots dropped)."""
+    import torch
+
+    flat = torch.zeros(n, dtype=torch.int32, device=label.device)
+    m = pidx >= 0
+    flat[pidx[m].long()] = label[m]
+    return flat
+
+
+def sharded_phase(dev, card, kernels, t3, grid_icp, t4):
+    """The multi-device entry points on a one-rank NCCL mesh (the world
+    size torch.cuda.device_count() gives here: one card):
+    (a) sharded_blocked_dbscan on the tier-3 job's 4,883 blocks (quirks
+        off, halo off, 65,536 noise slots: the grid noise engine, as the
+        job): labels in point order equal the job's, n_total and digest
+        JAX's; overflows 0; K1 launches;
+    (b) Engine.cluster_sharded on the Engine session (hier halo union,
+        density-sized caps: tools/sharded_session.py) in each mode of
+        sharded_session.MODES: overflows 0, n_total and the block-layout
+        label digest equal JAX's; the default (hier) labels equal the
+        port's single-device chain on the same blocks (K1, merge_blocks,
+        halo_buffers, grid_union_ids); K1 launches;
+    (c) sharded_icp of the tier-3 cluster centres onto its 5,120 truth
+        points: R and t within SHARDED_ICP_TOL of the job's single-device
+        ICP, the same iterations; K3 launches;
+    (d) sharded_icp_grid at grid ICP's m = 100,000, nn="grid" and
+        nn="brute" (K3): each within ICP_GRID_TOL of the other in R and
+        F32_ICP_GRID_T_TOL in t, and of the single-device icp_grid; no
+        overflow;
+    (e) slam_pipeline_ba(mesh=...) on the tier-4 scans: float64 poses
+        within F64_POSE_TOL of the single-device float64 run; float32
+        (through K3) ATEs within the tier-4 phase's tolerance of JAX's
+        float64 ATEs.
+    Each part prints its wall time, CUDA-event time, K1/K3 launches and
+    overflow counters."""
+    import torch
+
+    from tools.engine_session import SESSION, engine_config
+    from tools.sharded_session import MODES, SHARDED
+    from tools.tier3_inputs import NN, nn_cell, nn_inputs
+    from vtkcloudpoint_tpu_torch.cluster.dbscan import dbscan_blocks_dispatch
+    from vtkcloudpoint_tpu_torch.cluster.fusion import merge_blocks
+    from vtkcloudpoint_tpu_torch.cluster.halo_fusion import (
+        apply_halo_merge, grid_union_ids, halo_buffers)
+    from vtkcloudpoint_tpu_torch.config import ICPConfig, ParallelConfig
+    from vtkcloudpoint_tpu_torch.engine import Engine
+    from vtkcloudpoint_tpu_torch.parallel.distributed import one_rank_group
+    from vtkcloudpoint_tpu_torch.parallel.sharded import (
+        sharded_blocked_dbscan, sharded_icp, sharded_icp_grid)
+
+    world = torch.cuda.device_count()
+    rows = {}
+
+    def report(part, launches, **fields):
+        print(json.dumps({"phase": "sharded_" + part, "card": card,
+                          "world": 1, "backend": "nccl",
+                          "launches": launches, **fields}))
+
+    with one_rank_group(dev) as mesh:
+        # (a) the tier-3 blocks
+        inp3, s3 = t3
+        T = inp3.T
+        reset_launches()
+        out, wall, ev = _timed(lambda: sharded_blocked_dbscan(
+            mesh, s3.bc, s3.bv, T["eps"], T["min_pts"], T["metric"],
+            quirks=False, noise_capacity_per_device=T["noise_cap"],
+            noise_cell_cap=T["noise_cell_cap"]))
+        launches = read_launches()
+        require(launches["dbscan_block"] > 0,
+                "K1 did not launch in sharded_blocked_dbscan")
+        rows["a"] = launches
+        label = _scatter_points(out["label"], s3.pidx, inp3.motor.shape[0])
+        got = {"n_total": int(out["n_total"]),
+               "label_sha256": sha256_of(label),
+               "noise_overflow": int(out["noise_overflow"]),
+               "halo_overflow": int(out["halo_overflow"])}
+        require(got["noise_overflow"] == got["halo_overflow"] == 0,
+                f"sharded tier-3 overflow: {got}")
+        require(torch.equal(label, s3.fused["label"]),
+                "sharded tier-3 labels differ from the tier-3 job's")
+        require(got["n_total"] == JAX_TIER3["n_clusters"]
+                and got["label_sha256"] == JAX_TIER3["label_sha256"],
+                f"sharded tier-3 {got} differs from JAX CPU")
+        report("tier3", launches, n_points=T["n_points"],
+               blocks=T["max_blocks"], **got, equal_tier3_job=True,
+               wall_s=wall, event_ms=ev)
+
+        # (b) Engine.cluster_sharded on the Engine session
+        sess = engine_session_inputs()
+        eng = Engine(engine_config(), device=dev)
+        batch = eng.filter_by_distance(
+            eng.import_arrays(sess.motor, sess.rng,
+                              capacity=SESSION["capacity"]),
+            SESSION["dis_min"], SESSION["dis_max"])
+        cap = eng.cfg.cluster.block_capacity
+        caps = ParallelConfig.size_caps(
+            eng.cfg.cluster.eps, SHARDED["density"], cap,
+            blocks_per_device=-(-batch.capacity // cap), noise_frac=0.01)
+        engine_out = {}
+        for mode, kw in MODES.items():
+            reset_launches()
+            out, wall, ev = _timed(lambda: eng.cluster_sharded(
+                batch, mesh=mesh, **SHARDED, **kw))
+            launches = read_launches()
+            require(launches["dbscan_block"] > 0,
+                    f"K1 did not launch in Engine.cluster_sharded ({mode})")
+            rows["b_" + mode] = launches
+            got = {"n_total": int(out["n_total"]),
+                   "label_sha256": sha256_of(out["label"]),
+                   "noise_overflow": int(out["noise_overflow"]),
+                   "halo_overflow": int(out["halo_overflow"])}
+            require(got["noise_overflow"] == got["halo_overflow"] == 0,
+                    f"Engine.cluster_sharded ({mode}) overflow: {got}")
+            if mode in JAX_SHARDED:
+                want = JAX_SHARDED[mode]
+                require(got["n_total"] == want["n_total"]
+                        and got["label_sha256"] == want["label_sha256"],
+                        f"Engine.cluster_sharded ({mode}) {got} differs "
+                        f"from JAX CPU {want}")
+            engine_out[mode] = out
+            report("engine_" + mode, launches, **got,
+                   jax_cpu_matches=mode in JAX_SHARDED, wall_s=wall,
+                   event_ms=ev, caps=caps)
+        # the port's single-device chain on the same blocks
+        from vtkcloudpoint_tpu_torch.cluster.blocks import (
+            assign_blocks_balanced, gather_blocks_ordered)
+
+        c = eng.cfg.cluster
+        b = -(-batch.capacity // cap)
+        part = assign_blocks_balanced(batch.motor, batch.valid, cap)
+        bc, bv, pidx, _ = gather_blocks_ordered(batch.motor, part["order"],
+                                                batch.valid, b, cap)
+        db = dbscan_blocks_dispatch(bc, bv, c.eps, c.min_pts, c.metric)
+        fused = merge_blocks(db["label"], bv, bc, pidx, batch.capacity,
+                             c.eps, c.min_pts, c.metric, quirks=True,
+                             noise_capacity=caps["noise_capacity"],
+                             noise_cell_cap=caps["cell_cap"])
+        glab = torch.where(pidx >= 0, fused["label"][pidx.clamp(0).long()],
+                           0).to(torch.int32)
+        hx, hlab, hval, hov = halo_buffers(bc, bv, glab, db["core"], c.eps,
+                                           caps["halo_cap"])
+        uni = grid_union_ids(hx, hlab, hval, fused["n_total"], c.eps,
+                             c.metric, 4096, cell_cap=caps["cell_cap"],
+                             max_rounds=ParallelConfig().fixpoint_max_rounds)
+        single = apply_halo_merge(glab, uni["remap"])
+        require(int(hov) == int(uni["overflow"]) == 0,
+                "single-device halo chain overflowed")
+        require(torch.equal(engine_out["hier"]["label"], single)
+                and int(engine_out["hier"]["n_total"]) == int(
+                    uni["n_after"]),
+                "Engine.cluster_sharded labels differ from the single-device "
+                "halo chain")
+        require(torch.equal(engine_out["hier"]["point_index"], pidx),
+                "Engine.cluster_sharded point_index differs")
+
+        # (c) sharded_icp at tier 3's registration
+        centers, cvalid = s3.stats["center3d"], s3.stats["count"] > 0
+        icfg = ICPConfig(max_iterations=T["icp_iterations"])
+        reset_launches()
+        (r, t, d, it), wall, ev = _timed(lambda: sharded_icp(
+            mesh, centers, cvalid, inp3.truth, inp3.truth_valid, icfg))
+        launches = read_launches()
+        require(launches["nn_argmin"] > 0, "K3 did not launch in sharded_icp")
+        rows["c"] = launches
+        dr = float((r - s3.reg.r).abs().max())
+        dt = float((t - s3.reg.t).abs().max())
+        require(dr <= SHARDED_ICP_TOL and dt <= SHARDED_ICP_TOL
+                and int(it) == int(s3.reg.iterations),
+                f"sharded_icp differs from icp: R {dr}, t {dt}, iterations "
+                f"{int(it)} vs {int(s3.reg.iterations)}")
+        report("icp", launches, n=centers.shape[0],
+               m=inp3.truth.shape[0], iterations=int(it), max_abs_dR=dr,
+               max_abs_dt=dt, error=float(d), wall_s=wall, event_ms=ev)
+
+        # (d) sharded_icp_grid at grid ICP's size
+        src, tgt = (torch.from_numpy(a).to(dev) for a in nn_inputs())
+        sv = torch.ones(src.shape[0], dtype=torch.bool, device=dev)
+        tv = torch.ones(tgt.shape[0], dtype=torch.bool, device=dev)
+        gcfg = ICPConfig(max_iterations=NN["max_iterations"], tol=NN["tol"])
+        grid_out = {}
+        for nn in ("grid", "brute"):
+            reset_launches()
+            (r, t, d, it, ovf), wall, ev = _timed(lambda: sharded_icp_grid(
+                mesh, src, sv, tgt, tv, gcfg, cell_size=nn_cell(NN["m"]),
+                cell_cap=NN["cell_cap"], fallback_cap=NN["fallback_cap"],
+                nn=nn))
+            launches = read_launches()
+            rows["d_" + nn] = launches
+            dr = float((r - grid_icp.r).abs().max())
+            dt = float((t - grid_icp.t).abs().max())
+            require(int(ovf) == 0, f"sharded_icp_grid ({nn}) overflow "
+                                   f"{int(ovf)}")
+            require(dr <= JAX_ICP_GRID_TOL and dt <= F32_ICP_GRID_T_TOL,
+                    f"sharded_icp_grid ({nn}) differs from icp_grid: R {dr}, "
+                    f"t {dt}")
+            grid_out[nn] = (r, t)
+            report("icp_grid_" + nn, launches, m=NN["m"],
+                   iterations=int(it), overflow=int(ovf), max_abs_dR=dr,
+                   max_abs_dt=dt, error=float(d), wall_s=wall, event_ms=ev)
+        require(rows["d_brute"]["nn_argmin"] > 0,
+                "K3 did not launch in sharded_icp_grid(nn='brute')")
+        # K3 at the brute path's shape (N = M = 100,000 a hop), held bit for
+        # bit on its first iteration's query: the sources moved by the
+        # centroid offset
+        query = (src + (tgt.mean(dim=0) - src.mean(dim=0))).contiguous()
+        add_fields(kernels, {"nn_argmin": hold_k3(query, tgt, tv,
+                                                  "sharded brute")},
+                   "sharded_brute")
+        dr = float((grid_out["grid"][0] - grid_out["brute"][0]).abs().max())
+        dt = float((grid_out["grid"][1] - grid_out["brute"][1]).abs().max())
+        require(dr <= ICP_GRID_TOL and dt <= F32_ICP_GRID_T_TOL,
+                f"sharded_icp_grid grid and brute differ: R {dr}, t {dt}")
+
+        # (e) slam_pipeline_ba(mesh=...) on the tier-4 scans
+        inp4 = t4.inp
+        r64 = t4.ref["f64"]
+        reset_launches()
+        run, wall, ev = _timed(lambda: tier4_job(inp4, torch.float32,
+                                                 mesh=mesh))
+        launches = read_launches()
+        require(launches["nn_argmin"] > 0,
+                "K3 did not launch in slam_pipeline_ba(mesh=...)")
+        rows["e"] = launches
+        f32_dev = {k: abs(v - r64["slam"]["ate_" + k])
+                   for k, v in run.ate.items()}
+        require(max(f32_dev.values()) <= t4.f32_tol,
+                f"sharded float32 ATEs {run.ate} far from JAX's float64 "
+                f"(tolerance {t4.f32_tol})")
+        f64, wall64, _ = _timed(lambda: tier4_job(inp4, torch.float64,
+                                                  "torch", mesh=mesh))
+        gaps = {k: max(float((tr.r - t4.f64.trajs[k].r).abs().max()),
+                       float((tr.t - t4.f64.trajs[k].t).abs().max()))
+                for k, tr in f64.trajs.items()}
+        require(max(gaps.values()) <= F64_POSE_TOL,
+                f"sharded float64 poses differ from the single-device run: "
+                f"{gaps}")
+        report("slam_ba", launches, ate_f32=run.ate,
+               f32_ate_dev_from_jax_f64=f32_dev, f32_ate_tol=t4.f32_tol,
+               f64_pose_gap_single=gaps, n_landmarks=int(
+                   run.stats["n_landmarks"]), wall_s=wall, event_ms=ev,
+               f64_wall_s=wall64)
+
+    add_fields(kernels, {
+        "dbscan_block": {"launches": {k: v["dbscan_block"]
+                                      for k, v in rows.items()}},
+        "nn_argmin": {"launches": {k: v["nn_argmin"]
+                                   for k, v in rows.items()}}}, "sharded")
+    print(json.dumps({"phase": "sharded", "card": card, "world": 1,
+                      "cards": world, "backend": "nccl",
+                      "not_exercised_across_ranks": [
+                          "all_gather", "all_to_all", "ppermute_ring",
+                          "psum", "pmin", "pmax"]}))
 
 
 def main():
@@ -1596,11 +1909,14 @@ def main():
     shape_variants_phase(s, card)
     halo_phase(inp, card)
     grid_engine_phase(dev, card)
-    icp_grid_phase(dev, card, kernels)
-    tier3_phase(dev, card, kernels)
+    grid_icp = icp_grid_phase(dev, card, kernels)
+    t3 = tier3_phase(dev, card, kernels)
 
     # ---- the tier-4 SLAM job and scan-to-map ----
-    tier4_phase(dev, card, kernels)
+    t4 = tier4_phase(dev, card, kernels)
+
+    # ---- the multi-device paths on a one-rank NCCL group ----
+    sharded_phase(dev, card, kernels, t3, grid_icp, t4)
 
     require("jax" not in sys.modules, "jax was imported")
     jax_package = sorted(m for m in sys.modules if m == "vtkcloudpoint_tpu"

@@ -21,6 +21,7 @@ from tests.test_ba import _make_ba_problem, _make_problem
 from vtkcloudpoint_tpu.slam import ba as jba
 from vtkcloudpoint_tpu.slam import posegraph as jpg
 from vtkcloudpoint_tpu_torch import convert
+from vtkcloudpoint_tpu_torch.parallel.distributed import one_rank_group
 from vtkcloudpoint_tpu_torch.slam import ba as tba
 from vtkcloudpoint_tpu_torch.slam import posegraph as tpg
 
@@ -124,9 +125,13 @@ def test_ba_schur_step_matches_jax(ba_problem):
                           1e-6)
     for x, y in zip(a, b):
         np.testing.assert_allclose(y.numpy(), _np(x), atol=TOL)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tba.ba_schur_step(*map(torch.from_numpy, (r0, t0, l0)), _port(obs),
-                          1e-6, axis="blocks")
+    # axis= (a one-rank gloo mesh): the all_reduced moments of one rank
+    # are its own, so the step is the single-device step bit for bit
+    with one_rank_group("cpu") as mesh:
+        c = tba.ba_schur_step(*map(torch.from_numpy, (r0, t0, l0)),
+                              _port(obs), 1e-6, axis=mesh)
+    for x, y in zip(b, c):
+        assert torch.equal(x, y)
 
 
 def test_bundle_adjust_matches_jax(ba_problem):
@@ -180,11 +185,30 @@ def test_observations_from_scans_matches_jax():
 
 
 def test_sharded_solvers_raise_naming_item_7(graph_problem, ba_problem):
+    """The sharded pose graph and BA -- ported, once named ROADMAP item 7
+    -- on a one-rank gloo mesh against JAX's on make_mesh(1): poses and
+    landmarks atol 1e-9, costs rtol 1e-9 (2 and 4 ranks:
+    tests/test_torch_sharded.py)."""
+    from vtkcloudpoint_tpu.parallel.mesh import make_mesh
+
+    jmesh = make_mesh(1)
     _, (r0, t0), graph = graph_problem
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tba.optimize_pose_graph_sharded(None, torch.from_numpy(r0),
-                                        torch.from_numpy(t0), _port(graph))
-    _, (r0, t0, l0), obs = ba_problem
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tba.bundle_adjust_sharded(None, *map(torch.from_numpy, (r0, t0, l0)),
-                                  _port(obs))
+    ra, ta, ca = jba.optimize_pose_graph_sharded(
+        jmesh, jnp.asarray(r0), jnp.asarray(t0), graph, iterations=8)
+    _, (r1, t1, l1), obs = ba_problem
+    rb_a, tb_a, lb_a, cb_a = jba.bundle_adjust_sharded(
+        jmesh, jnp.asarray(r1), jnp.asarray(t1), jnp.asarray(l1), obs,
+        iterations=15, damping=1e-6)
+    with one_rank_group("cpu") as mesh:
+        rb, tb_, cb = tba.optimize_pose_graph_sharded(
+            mesh, torch.from_numpy(r0), torch.from_numpy(t0), _port(graph),
+            iterations=8)
+        rb_b, tb_b, lb_b, cb_b = tba.bundle_adjust_sharded(
+            mesh, *map(torch.from_numpy, (r1, t1, l1)), _port(obs),
+            iterations=15, damping=1e-6)
+    for x, y in ((rb, ra), (tb_, ta), (rb_b, rb_a), (tb_b, tb_a),
+                 (lb_b, lb_a)):
+        np.testing.assert_allclose(x.numpy(), _np(y), atol=SOLVE_TOL)
+    for x, y in ((cb, ca), (cb_b, cb_a)):
+        assert (float(x) < 1e-18 and float(y) < 1e-18) or np.isclose(
+            float(x), float(y), rtol=1e-9)

@@ -734,3 +734,90 @@ def test_voxel_downsample_on_card_repeats(gpu):
         assert torch.equal(x, y)
     assert torch.equal(a[1].cpu(), c[1]) and int(a[2]) == int(c[2])
     torch.testing.assert_close(a[0].cpu(), c[0], rtol=1e-6, atol=1e-6)
+
+
+# ---- the multi-device paths on a one-rank NCCL mesh ----
+
+def test_sharded_dbscan_world1_nccl_equals_single_device(gpu):
+    """sharded_blocked_dbscan on a one-rank NCCL mesh (collectives on the
+    card) gives the single-device fusion's labels, with the ring, hier and
+    distributed-noise modes equal to the gathered halo union."""
+    from vtkcloudpoint_tpu_torch.cluster.fusion import merge_blocks
+    from vtkcloudpoint_tpu_torch.parallel.distributed import one_rank_group
+    from vtkcloudpoint_tpu_torch.parallel.sharded import \
+        sharded_blocked_dbscan
+
+    coords, valid = _blocks(11, 8, 256, 2)
+    bc = torch.from_numpy(coords).to(gpu)
+    bv = torch.from_numpy(valid).to(gpu)
+    pidx = torch.arange(bc.shape[0] * bc.shape[1], dtype=torch.int32,
+                        device=gpu).reshape(bv.shape)
+    pidx = torch.where(bv, pidx, -1)
+    kw = dict(quirks=False, noise_capacity_per_device=1024)
+    db = k_dbscan.dbscan_blocks_cuda(bc, bv, 0.03, 6)
+    fused = merge_blocks(db["label"], bv, bc, pidx, bv.numel(), 0.03, 6,
+                         quirks=False, noise_capacity=1024)
+    k_dbscan.launches = 0
+    with one_rank_group(gpu) as mesh:
+        assert mesh.device == gpu
+        out = sharded_blocked_dbscan(mesh, bc, bv, 0.03, 6, **kw)
+        hkw = dict(halo_merge=True, halo_cap=256, halo_cell_cap=256,
+                   max_ids=1024, cell_table_bits=16, **kw)
+        halo = {mode: sharded_blocked_dbscan(mesh, bc, bv, 0.03, 6,
+                                             halo_mode=mode, **hkw)
+                for mode in ("gather", "ring", "hier")}
+        dist = sharded_blocked_dbscan(
+            mesh, bc, bv, 0.03, 6, halo_mode="hier",
+            noise_recluster="distributed", noise_cell_cap=64, **hkw)
+    assert k_dbscan.launches > 0
+    flat = torch.where(bv, fused["label"][pidx.clamp(0).long()], 0)
+    assert torch.equal(out["label"], flat)
+    assert int(out["n_total"]) == int(fused["n_total"])
+    for o in list(halo.values()) + [dist]:
+        assert torch.equal(o["label"], halo["gather"]["label"])
+        assert int(o["halo_overflow"]) == int(o["noise_overflow"]) == 0
+
+
+def test_sharded_icp_launches_k3(gpu):
+    from vtkcloudpoint_tpu_torch.parallel.distributed import one_rank_group
+    from vtkcloudpoint_tpu_torch.parallel.sharded import sharded_icp
+
+    rng = np.random.default_rng(1)
+    pts = (rng.uniform(-1, 1, (512, 3)) * [5, 5, 1]).astype(np.float32)
+    c, s = np.cos(0.12), np.sin(0.12)
+    r_true = np.float32([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    src = torch.from_numpy(pts).to(gpu)
+    tgt = torch.from_numpy(pts @ r_true.T + np.float32([0.4, -0.1, 0.2])
+                           ).to(gpu)
+    ones = torch.ones(512, dtype=torch.bool, device=gpu)
+    cfg = ICPConfig(tol=1e-9)
+    k_nn.launches = 0
+    with one_rank_group(gpu) as mesh:
+        r, t, _, it = sharded_icp(mesh, src, ones, tgt, ones, cfg)
+    assert k_nn.launches == int(it) > 0
+    single = icp(src, ones, tgt, ones, cfg)
+    assert int(single.iterations) == int(it)
+    assert float((r - single.r).abs().max()) <= 1e-5
+    assert float((t - single.t).abs().max()) <= 1e-5
+
+
+def test_make_mesh_refuses_a_size_the_world_lacks(gpu):
+    """make_mesh(2) on a one-rank group raises (never a 1-rank "2-device"
+    run), and a CUDA mesh refuses a gloo group (no host staging)."""
+    import torch.distributed as tdist
+
+    from vtkcloudpoint_tpu_torch.parallel.distributed import (free_port,
+                                                              one_rank_group)
+    from vtkcloudpoint_tpu_torch.parallel.mesh import make_mesh
+
+    with one_rank_group(gpu):
+        with pytest.raises(RuntimeError, match="rank"):
+            make_mesh(2, device=gpu)
+        assert make_mesh(1, device=gpu).size == 1
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                             f"{free_port()}", world_size=1, rank=0)
+    try:
+        with pytest.raises(RuntimeError, match="NCCL"):
+            make_mesh(1, device=gpu)
+    finally:
+        tdist.destroy_process_group()

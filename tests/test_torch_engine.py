@@ -201,8 +201,18 @@ def test_engine_refusals():
                               np.ones(4, np.float32))
     out, stats = eng.cluster_grid(batch)       # ported: grid DBSCAN
     assert int(out["n_clusters"]) == 0 and int(out["overflow"]) == 0
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # cluster_sharded (ported, once named ROADMAP item 7) needs a process
+    # group; on a one-rank one it clusters the empty batch
+    from vtkcloudpoint_tpu_torch.parallel.distributed import one_rank_group
+
+    with pytest.raises(RuntimeError, match="process group"):
         eng.cluster_sharded(batch)
+    with one_rank_group("cpu"):
+        out = eng.cluster_sharded(batch)
+    assert int(out["n_total"]) == 0 and int(out["noise_overflow"]) == 0
+    assert int(out["halo_overflow"]) == 0
+    assert out["label"].shape == out["point_index"].shape
+    assert out["label"].shape[1] == CFG.cluster.block_capacity
 
 
 @pytest.mark.parametrize("metric,cell_cap", [("l1_motor", 64),

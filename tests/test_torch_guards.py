@@ -54,7 +54,9 @@ def test_slice_modules_present():
                 "cluster.halo_fusion", "register.nn_grid", "ops.voxel",
                 "ops.linalg", "ops.polygon", "utils.checkpoint",
                 "utils.profiling", "utils.resilience", "slam.posegraph",
-                "slam.ba", "slam.trajectory", "slam.scan2map"):
+                "slam.ba", "slam.trajectory", "slam.scan2map",
+                "parallel.mesh", "parallel.distributed", "parallel.sharded",
+                "parallel.noise_shard"):
         assert f"vtkcloudpoint_tpu_torch.{mod}" in SLICE_MODULES
     for src in build.SOURCES:
         assert (build.CSRC / src).is_file()
@@ -62,7 +64,8 @@ def test_slice_modules_present():
 
 # what runs the port on the card besides the package itself
 PORT_SCRIPTS = ("chip_smoke", "tools.engine_session", "tools.tier3_inputs",
-                "tools.tier4_inputs", "tools.profile_k1", "tools.profile_k2")
+                "tools.tier4_inputs", "tools.profile_k1", "tools.profile_k2",
+                "tools.sharded_session", "tests.test_torch_sharded")
 
 
 def test_port_imports_no_jax():
@@ -320,37 +323,32 @@ def test_convert_round_trip_keeps_dtypes():
 
 
 def test_multi_device_parts_raise_naming_item_7():
-    """Only the multi-device parts still raise, naming ROADMAP item 7."""
+    """The multi-device parts, once raising and naming ROADMAP item 7, run:
+    on a one-rank gloo mesh halo_buffers(axis=...) sees no other rank, so
+    it equals the single-device buffers."""
     from vtkcloudpoint_tpu_torch.cluster.halo_fusion import halo_buffers
-    from vtkcloudpoint_tpu_torch.engine import Engine
+    from vtkcloudpoint_tpu_torch.parallel.distributed import one_rank_group
 
     coords, valid = _small_inputs()
     labels = torch.ones(2, 32, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        halo_buffers(coords, valid, labels, valid, 0.1, 8, axis="data",
-                     cell_table_bits=10)
-    hx, hlab, hvalid, ovf = halo_buffers(coords, valid, labels, valid, 0.1,
-                                         8, cell_table_bits=10)
-    assert hx.shape == (16, 2) and int(ovf) >= 0
-    eng = Engine(EngineConfig(), device="cpu")
-    batch = eng.import_arrays(np.zeros((4, 2), np.float32),
-                              np.ones(4, np.float32))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        eng.cluster_sharded(batch)
+    one = halo_buffers(coords, valid, labels, valid, 0.1, 8,
+                       cell_table_bits=10)
+    with one_rank_group("cpu") as mesh:
+        sharded = halo_buffers(coords, valid, labels, valid, 0.1, 8,
+                               axis=mesh, cell_table_bits=10)
+    for a, b in zip(one, sharded):
+        assert torch.equal(a, b)
+    assert one[0].shape == (16, 2) and int(one[3]) >= 0
 
 
 def test_no_not_implemented_left_but_multi_device():
-    """grep NotImplementedError over the port: only the multi-device entry
-    points raise it -- the sharded halo buffers and Engine.cluster_sharded,
-    the sharded pose-graph and BA solvers and slam_pipeline_ba(mesh=)."""
+    """grep NotImplementedError over the port: none is left (the last ones
+    were the multi-device entry points of ROADMAP item 7, ported)."""
     hits = sorted({f"{p.relative_to(PACKAGE)}"
                    for p in PACKAGE.rglob("*.py")
                    for line in p.read_text().splitlines()
-                   if "NotImplementedError" in line})
-    assert hits == ["cluster/halo_fusion.py", "engine.py", "slam/ba.py",
-                    "slam/trajectory.py"]
-    for name in hits:
-        assert "item 7" in (PACKAGE / name).read_text(), name
+                   if "NotImplementedError" in line or "item 7" in line})
+    assert hits == []
 
 
 @pytest.mark.parametrize("n,m", [(1024, 450), (12_288, 5_120),

@@ -176,3 +176,25 @@ def test_pack_cells_and_foreign_filter():
                                 sel, BITS)
     np.testing.assert_array_equal(np.asarray(fa), fb.numpy())
     assert 0 < int(fb.sum()) <= 100
+
+
+@partial(jax.jit, static_argnames=("shell_eps",))
+def _jax_cell_hashes(coords, shell_eps):
+    return jh.cell_hashes(coords, shell_eps, jg._PRIMES)[0]
+
+
+def test_float64_cell_hashes_use_the_double_reciprocal():
+    """Under jit XLA divides float64 coordinates by a static shell size as
+    a multiplication by the double 1 / size, float32 ones by
+    f32(1 / f32(size)). Points at multiples of 0.3 floor into another
+    cell under the float32 factor."""
+    rng = np.random.default_rng(7)
+    k = rng.integers(-40, 40, size=(200, 2)).astype(np.float64)
+    coords = np.concatenate([0.3 * k, rng.uniform(-12, 12, (200, 2))])
+    want = np.asarray(_jax_cell_hashes(jnp.asarray(coords), 0.3))
+    got = th.cell_hashes(torch.from_numpy(coords), 0.3, jg._PRIMES)[0]
+    np.testing.assert_array_equal(got.numpy(), want)
+    coords32 = coords.astype(np.float32)
+    want32 = np.asarray(_jax_cell_hashes(jnp.asarray(coords32), 0.3))
+    got32 = th.cell_hashes(torch.from_numpy(coords32), 0.3, jg._PRIMES)[0]
+    np.testing.assert_array_equal(got32.numpy(), want32)

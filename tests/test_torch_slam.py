@@ -300,9 +300,20 @@ def test_checkpoint_kill_resume(cases, jax_answers, tmp_path):
     np.testing.assert_array_equal(tr_, tb.numpy())
 
 
-def test_sharded_ba_raises_naming_item_7():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttr.slam_pipeline_ba(*_tv(np.zeros((2, 4, 3))), mesh=object())
+def test_sharded_ba_raises_naming_item_7(cases, jax_answers):
+    """slam_pipeline_ba(mesh=...) -- ported, once named ROADMAP item 7 --
+    on a one-rank gloo mesh gives JAX's poses (the 2- and 4-rank runs are
+    in tests/test_torch_sharded.py)."""
+    from vtkcloudpoint_tpu_torch.parallel.distributed import one_rank_group
+
+    ba_a, pg_a, _, st_a = jax_answers["ba"]
+    with one_rank_group("cpu") as mesh:
+        ba_b, pg_b, _, st_b = ttr.slam_pipeline_ba(
+            *_tv(cases["ba"]), ICPConfig(max_iterations=25, tol=1e-10),
+            mesh=mesh, **BA_KW)
+    _close_traj(pg_b, pg_a)
+    _close_traj(ba_b, ba_a)
+    assert int(st_b["n_landmarks"]) == int(st_a["n_landmarks"])
 
 
 # ---- tier-4 inputs ----

@@ -12,10 +12,10 @@ vtkcloudpoint_tpu.cluster.halo_fusion).
 The boundary test hashes global ``shell_eps`` cells twice (the primes of
 cluster/grid.py, int32 wrap done explicitly) into 2^cell_table_bits
 scatter-min/max block-id tables; a point is near another block when both
-hashes of some stencil cell say so. Only the single-device form is ported:
-``axis`` (the cross-device exchange of distinct-cell lists) belongs to the
-multi-device modules. Plain PyTorch: the JAX package runs this as XLA,
-with no Pallas kernel.
+hashes of some stencil cell say so. With ``axis`` (a parallel.mesh.Mesh)
+each rank also all_gathers every rank's distinct occupied cells
+(``pack_cells``), so the test sees the other ranks' blocks. Plain PyTorch:
+the JAX package runs this as XLA, with no Pallas kernel.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ import torch
 
 from ..ops.metrics import pairwise
 from .dbscan import _threshold, fixpoint
-from .grid import (_PRIMES, _PRIMES2, cell_hash, dbscan_grid, reciprocal32,
+from .grid import (_PRIMES, _PRIMES2, cell_hash, dbscan_grid, reciprocal,
                    stencil_deltas, wrap32)
 
 _IMAX = 2**31 - 1
@@ -79,14 +79,15 @@ def foreign_cell_filter(raw1, raw2, deltas1, deltas2, cells, cells_sel,
 
 def cell_hashes(coords, shell_eps: float, primes):
     """(raw hash [...], stencil deltas) of D-dim coords at shell_eps cells,
-    with no origin: cells are global."""
-    cidx = torch.floor(coords * reciprocal32(shell_eps)).long()
+    with no origin: cells are global. The division by the static shell size
+    is XLA's multiply by its reciprocal in the coordinates' precision."""
+    cidx = torch.floor(coords * reciprocal(shell_eps, coords.dtype)).long()
     return cell_hash(cidx, primes), stencil_deltas(coords.shape[-1], primes)
 
 
 def halo_buffers(block_coords, block_valid, block_labels, block_core,
                  eps: float, halo_cap: int, shell_eps: float = None,
-                 block_id_offset: int = 0, axis: str = None,
+                 block_id_offset: int = 0, axis=None,
                  cell_table_bits: int = 24):
     """Pack the core boundary points of [B, cap] blocks into B * halo_cap
     buffers.
@@ -96,12 +97,14 @@ def halo_buffers(block_coords, block_valid, block_labels, block_core,
     holds a point of another block. Returns (hx [B*halo_cap, D], hlab
     i32[...], hvalid bool[...], halo_overflow i32[]): the overflow counts
     halo points beyond halo_cap per block.
+
+    With ``axis`` (this rank's parallel.mesh.Mesh, where JAX names the
+    mesh axis inside shard_map) the blocks are this
+    rank's, ``block_id_offset`` makes their ids global, and a gathered list
+    of every rank's distinct occupied cells flags points near another
+    rank's blocks; distinct cells beyond the list's capacity add to the
+    overflow (they could hide boundary points).
     """
-    if axis is not None:
-        raise NotImplementedError(
-            "halo_buffers(axis=...) exchanges boundary cells across devices; "
-            "the multi-device modules are not ported yet: ROADMAP queue 1, "
-            "'Multi-device, last (item 7)'")
     if shell_eps is None:
         shell_eps = eps
     B, cap, d = block_coords.shape
@@ -135,6 +138,19 @@ def halo_buffers(block_coords, block_valid, block_labels, block_core,
         hit1 = (bmin1[i1] < bid) | (bmax1[i1] > bid)
         hit2 = (bmin2[i2] < bid) | (bmax2[i2] > bid)
         near_other = near_other | (hit1 & hit2)
+
+    cell_dropped = 0
+    if axis is not None:
+        cells, sel, cell_dropped = pack_cells(
+            raw1.reshape(-1), raw2.reshape(-1), occupied,
+            max(4096, B * cap // 4))
+        gcells = axis.all_gather(cells)                 # [ndev, cap, 2]
+        gsel = axis.all_gather(sel)
+        other = torch.arange(axis.size, device=dev) != axis.axis_index()
+        near_other = near_other | foreign_cell_filter(
+            raw1.reshape(-1), raw2.reshape(-1), deltas1, deltas2,
+            gcells.reshape(-1, 2), (gsel & other[:, None]).reshape(-1),
+            cell_table_bits).reshape(B, cap)
     is_halo = block_valid & near_other & block_core & (block_labels > 0)
 
     slot_key = torch.where(is_halo, torch.arange(cap, device=dev), cap)
@@ -146,7 +162,7 @@ def halo_buffers(block_coords, block_valid, block_labels, block_core,
                        0).reshape(-1).to(torch.int32)
     overflow = torch.clamp_min(is_halo.sum(dim=1, dtype=torch.int32)
                                - halo_cap, 0).sum(dtype=torch.int32)
-    return hx, hlab, sel.reshape(-1), overflow
+    return hx, hlab, sel.reshape(-1), overflow + cell_dropped
 
 
 def _finish(idm, n_used, max_ids: int):

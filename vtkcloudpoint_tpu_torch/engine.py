@@ -133,11 +133,60 @@ class Engine:
                               batch.valid, max_clusters)
         return out, stats
 
-    def cluster_sharded(self, batch: PointBatch, mesh=None, **kw):
-        raise NotImplementedError(
-            "Engine.cluster_sharded needs the multi-device modules "
-            "(parallel/), not ported yet: ROADMAP queue 1, 'Multi-device, "
-            "last (item 7)'")
+    def cluster_sharded(self, batch: PointBatch, mesh=None,
+                        halo_mode: str = "hier", block_capacity: int = None,
+                        density: float = None, **kw):
+        """Multi-device clustering (tier 5), this rank's part: every rank
+        holds the whole batch, cuts the same Morton blocks and clusters its
+        shard of them (parallel.sharded.sharded_blocked_dbscan: per-rank
+        DBSCAN, noise re-cluster, hierarchical halo union). ``mesh``
+        defaults to the mesh of every rank on the Engine's device (an
+        initialised process group is needed, parallel.distributed).
+
+        ``density`` (points per unit metric area), when given, sizes every
+        capacity through ParallelConfig.size_caps so a sized run cannot
+        silently drop points; otherwise pass explicit caps in **kw.
+        Returns the sharded result dict: this rank's labels in BLOCK layout
+        [B/n, cap] and "point_index" [B/n, cap] mapping its slots to batch
+        rows (-1 padding), with the replicated n_total and overflows.
+        """
+        from .config import ParallelConfig
+        from .cluster.blocks import (assign_blocks_balanced,
+                                     gather_blocks_ordered)
+        from .parallel.mesh import make_mesh, shard_blocks
+        from .parallel.sharded import sharded_blocked_dbscan
+
+        mesh = mesh if mesh is not None else make_mesh(device=self.device)
+        ndev = mesh.size
+        cap = block_capacity or self.cfg.cluster.block_capacity
+        coords = coords_for_metric(batch.xyz, batch.motor,
+                                   self.cfg.cluster.metric)
+        b = -(-batch.capacity // cap)
+        b += (-b) % ndev                      # blocks divisible by the mesh
+        part = assign_blocks_balanced(batch.motor, batch.valid, cap)
+        bc, bv, pidx, _ = gather_blocks_ordered(
+            coords, part["order"], batch.valid, b, cap)
+        if density is not None:
+            caps = ParallelConfig.size_caps(
+                self.cfg.cluster.eps, density, cap,
+                blocks_per_device=b // ndev, noise_frac=0.01)
+            kw.setdefault("halo_cap", caps["halo_cap"])
+            kw.setdefault("halo_cell_cap", caps["cell_cap"])
+            kw.setdefault("noise_cell_cap", caps["cell_cap"])
+            kw.setdefault("dev_halo_cap", caps["dev_halo_cap"])
+            kw.setdefault("noise_capacity_per_device",
+                          caps["noise_capacity"])
+            kw.setdefault("noise_skin_cap", caps["noise_skin_cap"])
+            kw.setdefault("noise_root_cap", caps["noise_root_cap"])
+        out = sharded_blocked_dbscan(
+            mesh, shard_blocks(mesh, bc), shard_blocks(mesh, bv),
+            eps=self.cfg.cluster.eps, min_pts=self.cfg.cluster.min_pts,
+            metric=self.cfg.cluster.metric,
+            min_cluster_size=self.cfg.cluster.min_cluster_size,
+            halo_merge=True, halo_mode=halo_mode, backend=self.backend,
+            **kw)
+        out["point_index"] = shard_blocks(mesh, pidx)
+        return out
 
     def reject_by_radius(self, batch: PointBatch, result: ClusterResult,
                          radius: Optional[float] = None,

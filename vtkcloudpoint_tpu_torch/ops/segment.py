@@ -59,24 +59,51 @@ def _segment_sum(values, ok, seg, num_segments: int):
     float64 instead, so NaN and inf propagate as in jnp."""
     idx = torch.where(ok, seg, num_segments)
     shape = (num_segments + 1,) + values.shape[1:]
-    dev = values.device
     if not values.is_floating_point():
-        out = torch.zeros(shape, dtype=values.dtype, device=dev)
+        out = torch.zeros(shape, dtype=values.dtype, device=values.device)
         return out.index_add_(0, idx, values)[:num_segments]
-    rows = ok.reshape((-1,) + (1,) * (values.dim() - 1))
-    v = torch.where(rows, values.double(), 0.0)
-    amax = (v.abs().amax(dim=0) if v.shape[0]
-            else torch.zeros(shape[1:], dtype=torch.float64, device=dev))
+    v = masked_rows(values, ok)
+    amax = column_max(v)
     if not bool(torch.isfinite(amax).all()):
-        out = torch.zeros(shape, dtype=torch.float64, device=dev)
+        out = torch.zeros(shape, dtype=torch.float64, device=values.device)
         return out.index_add_(0, idx, v)[:num_segments]
+    q, k = fixed_point_sums(v, ok, seg, num_segments, amax, v.shape[0])
+    return from_fixed_point(q, k)
+
+
+def masked_rows(values, ok):
+    """values [N, ...] in float64, the rows without ``ok`` zeroed."""
+    rows = ok.reshape((-1,) + (1,) * (values.dim() - 1))
+    return torch.where(rows, values.double(), 0.0)
+
+
+def column_max(v):
+    """max |v| over the rows of v [N, ...] (0 for no rows)."""
+    if v.shape[0]:
+        return v.abs().amax(dim=0)
+    return torch.zeros(v.shape[1:], dtype=torch.float64, device=v.device)
+
+
+def fixed_point_sums(v, ok, seg, num_segments: int, amax, n_rows: int):
+    """The int64 fixed-point segment sums of the float64 rows v [N, ...]
+    with ``ok`` and their scale exponent k (the sums are 2^k times the
+    real ones). ``amax`` (the finite column maxima) and ``n_rows`` bound
+    the sums; a caller that sums the int64 results of several shards
+    passes the maxima and row count of all of them, so the total stays
+    below 2^_FIXED_BITS and every shard rounds to the same grid."""
     # max|column| < 2^e and N <= 2^bits(N - 1), so N * max < 2^(e + bits)
     k = (_FIXED_BITS - torch.frexp(amax)[1].long()
-         - max(v.shape[0] - 1, 0).bit_length()).clamp(-1000, 1000)
+         - max(n_rows - 1, 0).bit_length()).clamp(-1000, 1000)
     q = (v * _pow2(k)).round().long()
-    out = torch.zeros(shape, dtype=torch.int64, device=dev)
-    out.index_add_(0, idx, q)
-    return (out.double() * _pow2(-k))[:num_segments]
+    out = torch.zeros((num_segments + 1,) + v.shape[1:], dtype=torch.int64,
+                      device=v.device)
+    out.index_add_(0, torch.where(ok, seg, num_segments), q)
+    return out[:num_segments], k
+
+
+def from_fixed_point(q, k):
+    """float64 sums of fixed_point_sums' int64 sums q at scale 2^k."""
+    return q.double() * _pow2(-k)
 
 
 def cluster_counts(label, valid, num_segments: int):

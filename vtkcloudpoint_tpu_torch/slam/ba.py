@@ -1,5 +1,5 @@
 """Block-sparse pose-graph Gauss-Newton and landmark bundle adjustment
-(port of vtkcloudpoint_tpu.slam.ba, single device).
+(port of vtkcloudpoint_tpu.slam.ba).
 
 - Per-edge 6x6 Jacobian blocks from local forward-mode autodiff
   (``torch.func.vmap`` of ``torch.func.jacfwd``): each edge residual is a
@@ -17,8 +17,15 @@ same bits in any order on the card), and the normal-equation blocks are
 laid into H by ``index_put_(accumulate=True)`` on its [S, S, 6, 6] view,
 which adds duplicate (i, j) edges as JAX's ``.at[].add`` does, each
 position's blocks in edge order. The JAX ``lax.scan``
-over iterations is a Python loop that reads nothing from the device. The
-sharded solvers are multi-device (ROADMAP item 7) and raise.
+over iterations is a Python loop that reads nothing from the device.
+
+The sharded solvers take this rank's edges or observations (any count, at
+least one) and a parallel.mesh.Mesh: each rank assembles its share of the
+normal equations, one all_reduce per iteration sums them, and the small
+solve runs replicated -- the single-device result up to the order of the
+float sums. ``pad_pose_graph`` / ``pad_observations`` add JAX's zero-weight
+padding so a global array cuts into equal shards (``parallel.mesh.
+shard_blocks``).
 """
 from __future__ import annotations
 
@@ -138,13 +145,48 @@ def optimize_pose_graph_sparse(rot0, t0, graph: PoseGraph,
     return rots, trans, final_cost
 
 
+def pad_pose_graph(graph: PoseGraph, n: int) -> PoseGraph:
+    """The graph with weight-0 edges (0, 0) measuring the identity appended
+    up to a multiple of n: sqrt(0) zeroes their residual and Jacobian, and
+    the measurement stays in SO(3), so so3_log never sees garbage."""
+    pad = (-graph.edge_i.shape[0]) % n
+    if not pad:
+        return graph
+    eye = torch.eye(3, dtype=graph.r_meas.dtype,
+                    device=graph.r_meas.device).expand(pad, 3, 3)
+
+    def zeros(x, *tail):
+        return torch.cat([x, x.new_zeros((pad,) + tail)])
+
+    return PoseGraph(edge_i=zeros(graph.edge_i), edge_j=zeros(graph.edge_j),
+                     r_meas=torch.cat([graph.r_meas, eye]),
+                     t_meas=zeros(graph.t_meas, 3),
+                     weight=zeros(graph.weight))
+
+
 def optimize_pose_graph_sharded(mesh, rot0, t0, graph: PoseGraph,
                                 iterations: int = 10, damping: float = 1e-6,
                                 axis: str = "blocks"):
-    """Edges sharded over a device mesh: multi-device, ROADMAP item 7."""
-    raise NotImplementedError(
-        "optimize_pose_graph_sharded is multi-device: ROADMAP item 7 "
-        "(torch.distributed); use optimize_pose_graph_sparse on one device")
+    """Distributed pose-graph GN, this rank's part: ``graph`` holds this
+    rank's edges, the poses are replicated. Per iteration each rank
+    assembles (H, g, cost) over its edges and one all_reduce sums them; the
+    6S solve runs replicated. Returns (R [S,3,3], t [S,3], cost at the
+    start of the last iteration), replicated. ``axis`` is JAX's name of the mesh axis, kept
+    for its signature and not read: the mesh has one axis."""
+    s = rot0.shape[0]
+    rots, trans = rot0, t0
+    cost = None
+    for _ in range(iterations):
+        res, ji, jj = edge_blocks(rots, trans, graph)
+        h, g = assemble_normal_eqs(res, ji, jj, graph.edge_i, graph.edge_j,
+                                   s)
+        n6 = 6 * s
+        tot = mesh.psum(torch.cat([h.reshape(-1), g, (res * res).sum()[
+            None]]))
+        h, g, cost = tot[:n6 * n6].reshape(n6, n6), tot[n6 * n6:-1], tot[-1]
+        dx = -_solve_spd(_gauge(h, s, damping), g)
+        rots, trans = _apply_update(rots, trans, dx)
+    return rots, trans, cost
 
 
 # ---------------------------------------------------------------------------
@@ -181,11 +223,9 @@ def ba_schur_step(rots, trans, lms, obs: Observations, damping: float,
                   axis=None):
     """One Gauss-Newton step over (poses, landmarks) with the landmarks
     eliminated by Schur complement. Returns (rots, trans, lms, cost).
-    ``axis`` (the sharded form's collective axis) is multi-device, ROADMAP
-    item 7."""
-    if axis is not None:
-        raise NotImplementedError(
-            "ba_schur_step(axis=...) is multi-device: ROADMAP item 7")
+    With ``axis`` the observations are this rank's and the moment matrices
+    all_reduce before the replicated solve: where JAX names the mesh axis
+    inside shard_map, the port takes this rank's parallel.mesh.Mesh."""
     s = rots.shape[0]
     nl = lms.shape[0]
     dtype, dev = rots.dtype, rots.device
@@ -202,6 +242,14 @@ def ba_schur_step(rots, trans, lms, obs: Observations, damping: float,
     hpl = segment_sum(torch.einsum("oab,oac->obc", jp, jl), key,
                       s * nl).reshape(s, nl, 6, 3)
     cost = (res * res).sum()
+    if axis is not None:
+        parts = (hpp_d, gp, hll, gl, hpl, cost)
+        tot = axis.psum(torch.cat([x.reshape(-1) for x in parts]))
+        out, at = [], 0
+        for x in parts:
+            out.append(tot[at:at + x.numel()].reshape(x.shape))
+            at += x.numel()
+        hpp_d, gp, hll, gl, hpl, cost = out
 
     hll = hll + damping * torch.eye(3, dtype=dtype, device=dev)[None]
     hll_inv = torch.linalg.inv(hll)
@@ -235,14 +283,32 @@ def bundle_adjust(rot0, t0, lms0, obs: Observations, iterations: int = 10,
     return rots, trans, lms, (res * res).sum()
 
 
+def pad_observations(obs: Observations, n: int) -> Observations:
+    """The observations with weight-0 rows (pose 0, landmark 0, z 0)
+    appended up to a multiple of n: exact no-ops in the normal
+    equations."""
+    pad = (-obs.pose.shape[0]) % n
+    if not pad:
+        return obs
+    return Observations(*(torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+                          for x in obs))
+
+
 def bundle_adjust_sharded(mesh, rot0, t0, lms0, obs: Observations,
                           iterations: int = 10, damping: float = 1e-4,
                           axis: str = "blocks"):
-    """Observations sharded over a device mesh: multi-device, ROADMAP
-    item 7."""
-    raise NotImplementedError(
-        "bundle_adjust_sharded is multi-device: ROADMAP item 7 "
-        "(torch.distributed); use bundle_adjust on one device")
+    """Distributed BA, this rank's part: ``obs`` holds this rank's
+    observations; per iteration the (H_pp, H_pl, H_ll, g) moments all_reduce
+    and both the reduced camera solve and the landmark back-substitution
+    run replicated. Returns (R, t, landmarks, cost at the start of the last
+    iteration), replicated. ``axis`` is JAX's name of the mesh axis, kept
+    for its signature and not read: the mesh has one axis."""
+    rots, trans, lms = rot0, t0, lms0
+    cost = None
+    for _ in range(iterations):
+        rots, trans, lms, cost = ba_schur_step(rots, trans, lms, obs,
+                                               damping, axis=mesh)
+    return rots, trans, lms, cost
 
 
 def observations_from_scans(scans, scan_valid, traj_r, traj_t, eps: float,

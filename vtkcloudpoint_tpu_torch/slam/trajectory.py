@@ -256,17 +256,16 @@ def slam_pipeline_ba(scans, scan_valid, icp_cfg: ICPConfig = ICPConfig(),
     """Tier-4 pipeline with landmark refinement: odometry -> loop closures
     -> pose-graph GN -> cluster-centroid BA (slam.ba.observations_from_scans,
     then a Schur-eliminated bundle adjustment of poses and landmarks).
-    ``mesh`` (the sharded BA) is multi-device, ROADMAP item 7.
+    With ``mesh`` (a parallel.mesh.Mesh) the BA observations pad to a
+    multiple of the mesh size, each rank takes its shard and
+    bundle_adjust_sharded sums the Schur moments across ranks.
 
     Returns (Trajectory ba, Trajectory posegraph, Trajectory odometry,
     dict(graph_cost, ba_cost, n_landmarks)).
     """
-    from .ba import bundle_adjust, observations_from_scans
+    from .ba import (Observations, bundle_adjust, bundle_adjust_sharded,
+                     observations_from_scans, pad_observations)
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "slam_pipeline_ba(mesh=...) shards the BA over devices: ROADMAP "
-            "item 7 (torch.distributed)")
     opt, odo, cost = slam_pipeline(scans, scan_valid, icp_cfg, loop_radius,
                                    gn_iterations, damping, backend, timer)
     with _stage(timer, "observations"):
@@ -274,8 +273,17 @@ def slam_pipeline_ba(scans, scan_valid, icp_cfg: ICPConfig = ICPConfig(),
             scans, scan_valid, opt.r, opt.t, landmark_eps, landmark_min_pts,
             max_clusters_per_scan)
     with _stage(timer, "ba"):
-        r_ba, t_ba, _, ba_cost = bundle_adjust(
-            opt.r, opt.t, lms0, obs, iterations=ba_iterations,
-            damping=ba_damping)
+        if mesh is not None:
+            from ..parallel.mesh import shard_blocks
+
+            obs_loc = Observations(*(shard_blocks(mesh, x) for x in
+                                     pad_observations(obs, mesh.size)))
+            r_ba, t_ba, _, ba_cost = bundle_adjust_sharded(
+                mesh, opt.r, opt.t, lms0, obs_loc, iterations=ba_iterations,
+                damping=ba_damping)
+        else:
+            r_ba, t_ba, _, ba_cost = bundle_adjust(
+                opt.r, opt.t, lms0, obs, iterations=ba_iterations,
+                damping=ba_damping)
     stats = {"graph_cost": cost, "ba_cost": ba_cost, "n_landmarks": n_lm}
     return Trajectory(r_ba, t_ba), opt, odo, stats
