@@ -4,7 +4,8 @@ headless, through vtkcloudpoint_tpu_torch's Engine.
 Writes the same synthetic scanner session (examples/demo.py: make_session),
 then runs import -> distance filter -> blocked DBSCAN + fusion -> radius
 rejection -> coarse alignment -> ICP -> threshold matching -> exports (txt +
-.vtk scene), and prints the same lines as examples/demo.py.
+.vtk scene), and prints the same lines as examples/demo.py; each Engine
+step's time, from the port's span recorder, goes to standard error.
 
     python examples/demo_torch.py [--device cpu|cuda] [outdir]
 
@@ -39,7 +40,7 @@ def main(argv=None):
     from vtkcloudpoint_tpu_torch.config import (ClusterConfig, EngineConfig,
                                                 FilterConfig, ICPConfig)
     from vtkcloudpoint_tpu_torch.engine import Engine
-    from vtkcloudpoint_tpu_torch.utils.progress import ProgressReporter
+    from vtkcloudpoint_tpu_torch.utils import profiling
 
     centers_truth = make_session(outdir)
     cfg = EngineConfig(
@@ -48,26 +49,26 @@ def main(argv=None):
         icp=ICPConfig(max_iterations=80, match_distance=1.0),
     )
     eng = Engine(cfg, device=args.device)
-    rep = ProgressReporter(total_stages=6)
 
-    with rep.stage("import"):
+    with profiling.recording() as rec:
         batch, names = eng.import_folder(outdir)
-    with rep.stage("distance filter"):
         batch = eng.filter_by_distance(batch, 10.0, 100.0)
-    with rep.stage("cluster"):
         res = eng.cluster(batch, max_clusters=256, cluster_capacity=256,
                           max_blocks=64)
-    with rep.stage("radius rejection"):
         batch, rejected = eng.reject_by_radius(batch, res, radius=5.0)
-    with rep.stage("register + match"):
         truth = res.center3d[res.count > 0]
         reg = eng.register_to_truth(res, truth)
         matches = eng.match(res, truth, reg)
-    with rep.stage("export"):
         eng.export_scene(os.path.join(outdir, "scene"), batch, res)
         eng.export_centroids(os.path.join(outdir, "centroids.txt"), res)
         eng.export_cluster_points(os.path.join(outdir, "points.txt"),
                                   batch, res)
+    # each Engine step's host time, from the recorder's root spans
+    for s in rec.spans:
+        if s.parent is None and s.name != "sync":
+            print(f"{s.name}: {s.duration_ns * 1e-6:.1f} ms "
+                  f"({s.counters.get('host_syncs', 0)} host reads)",
+                  file=sys.stderr, flush=True)
 
     out = {"scan_points": int(batch.count),
            "n_clusters": int(res.n_clusters),

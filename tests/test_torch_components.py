@@ -1,7 +1,7 @@
 """PyTorch port vs the JAX package: the remaining ops and utilities --
 ops/voxel.py, ops/linalg.py, ops/polygon.py, utils/checkpoint.py,
-utils/profiling.py, utils/resilience.py -- and the carry of JAX SLAM state
-into the port's NamedTuples (convert.from_numpy).
+utils/resilience.py -- the trace exporter of utils/profiling.py, and the
+carry of JAX SLAM state into the port's NamedTuples (convert.from_numpy).
 
 Tolerances:
 - voxel_downsample: occupied slots and per-slot counts bit-equal; centroids
@@ -10,8 +10,9 @@ Tolerances:
 - jacobi_eigh: eigenvalues and eigenvectors atol 1e-12 (float64, the same
   rotation sequence);
 - polygon area and centroid atol 1e-12 (float64), the boolean tests equal;
-- checkpoints, counters and the resilience copy: equal.
+- checkpoints and the resilience copy: equal.
 """
+import json
 import os
 from pathlib import Path
 
@@ -25,7 +26,6 @@ from vtkcloudpoint_tpu.ops import linalg as jl
 from vtkcloudpoint_tpu.ops import polygon as jpoly
 from vtkcloudpoint_tpu.ops.voxel import voxel_downsample as j_voxel
 from vtkcloudpoint_tpu.utils import checkpoint as jck
-from vtkcloudpoint_tpu.utils import profiling as jprof
 from vtkcloudpoint_tpu_torch import convert
 from vtkcloudpoint_tpu_torch.ops import linalg as tl
 from vtkcloudpoint_tpu_torch.ops import polygon as tpoly
@@ -186,21 +186,19 @@ def test_polygon_ops_match_jax(name, pad):
 
 # ---- profiling ----
 
-@pytest.mark.parametrize("args", [(10, 256, 1), (3, 1024, 4), (0, 64, 2)])
-def test_profiling_counters_match_jax(args):
-    assert tprof.dbscan_distance_evals(*args) == jprof.dbscan_distance_evals(
-        *args)
-    assert tprof.nn_distance_evals(*args) == jprof.nn_distance_evals(*args)
-
-
 def test_stopwatch_and_device_trace(tmp_path):
-    with tprof.Stopwatch() as sw:
-        x = sw.sync({"a": torch.arange(1000).sum()})
-    assert sw.elapsed > 0 and int(x["a"]) == 499500
+    """The operator's exporter: the Chrome trace, and beside it the spans
+    recorded inside it (the port's recorder replaced the Stopwatch)."""
     with tprof.device_trace(str(tmp_path / "tr")) as prof:
-        torch.ones(64).cumsum(0)
+        with tprof.span("work"):
+            x = tprof.sync(int, torch.arange(1000).sum())
+    assert x == 499500
     assert (tmp_path / "tr" / "trace.json").is_file()
     assert len(prof.key_averages()) > 0
+    with open(tmp_path / "tr" / "spans.json") as f:
+        spans = json.load(f)
+    assert [s["name"] for s in spans] == ["work", "sync"]
+    assert spans[0]["counters"] == {"host_syncs": 1}
 
 
 # ---- checkpoint ----

@@ -6,6 +6,8 @@ JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -821,3 +823,132 @@ def test_make_mesh_refuses_a_size_the_world_lacks(gpu):
             make_mesh(1, device=gpu)
     finally:
         tdist.destroy_process_group()
+
+
+# ---- spans and host reads (utils/profiling.py) ----
+
+def _scan_inputs(gpu, seed=5, blobs=60, per=200, noise=600):
+    """A stream scan on the card: motor, xyz and valid of tight blobs and
+    noise, and the blob centres (the ICP's truth)."""
+    from vtkcloudpoint_tpu_torch.data.convert import motor_to_xyz
+
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(10.0, 30.0, (blobs, 2)).astype(np.float32)
+    motor = np.concatenate([c + 0.002 * rng.standard_normal((per, 2))
+                            for c in centres]
+                           + [rng.uniform(10.0, 30.0, (noise, 2))])
+    motor = torch.from_numpy(motor.astype(np.float32))
+    dist = torch.full((len(motor),), 40.0)
+    xyz = motor_to_xyz(motor, dist)
+    truth = motor_to_xyz(torch.from_numpy(centres), torch.full((blobs,),
+                                                               40.0))
+    return (xyz.to(gpu), motor.to(gpu),
+            torch.ones(len(motor), dtype=torch.bool, device=gpu),
+            truth.to(gpu), motor.numpy(), dist.numpy(), truth.numpy())
+
+
+def _stream_scan(xyz, motor, valid, truth):
+    cfg = EngineConfig(cluster=ClusterConfig(eps=0.004, min_pts=8,
+                                             block_capacity=1024))
+    res = cluster_scan(xyz, motor, valid, cfg, mode="balanced",
+                       max_blocks=16, quirks=False, noise_capacity=4096,
+                       max_clusters=128, cluster_capacity=1024, max_hull=32)
+    reg = icp(res.center3d, res.count > 0, truth,
+              torch.ones(truth.shape[0], dtype=torch.bool,
+                         device=truth.device), ICPConfig(max_iterations=50))
+    return res, reg
+
+
+def _session(gpu, motor, dist, truth):
+    out = []
+    for icp_cfg in (ICPConfig(), ICPConfig(num_starts=4),
+                    ICPConfig(ransac_iters=64)):
+        eng = Engine(EngineConfig(
+            cluster=ClusterConfig(eps=0.004, min_pts=8, block_capacity=1024),
+            icp=icp_cfg), device=gpu)
+        batch = eng.filter_by_distance(eng.import_arrays(motor, dist), 10.0,
+                                       100.0)
+        res = eng.cluster(batch, mode="balanced", max_clusters=128,
+                          cluster_capacity=1024, max_hull=32)
+        batch, _ = eng.reject_by_radius(batch, res, radius=0.5)
+        reg = eng.register_to_truth(
+            res, truth, generator=torch.Generator().manual_seed(3))
+        m = eng.match(res, truth, reg)
+        eng.export_centroids(os.devnull, res)
+        out.append((res, reg, m))
+    return out
+
+
+def _survey4(gpu):
+    from vtkcloudpoint_tpu_torch.slam.trajectory import slam_pipeline_ba
+
+    scans = torch.from_numpy(_slam_scans(2, s=4, n=2048)).to(gpu)
+    valid = torch.ones(scans.shape[:2], dtype=torch.bool, device=gpu)
+    return lambda: slam_pipeline_ba(
+        scans, valid, ICPConfig(max_iterations=30, tol=1e-10),
+        loop_radius=3.0, gn_iterations=8, landmark_eps=0.5,
+        landmark_min_pts=8, max_clusters_per_scan=64, ba_iterations=8)
+
+
+def test_every_host_read_goes_through_the_sync_helper(gpu, monkeypatch):
+    """A stream scan, an Engine session and a 4-scan survey under the
+    sync debug mode "error", lifted only inside profiling.sync: none
+    raises, so no read of the card bypasses the helper."""
+    from vtkcloudpoint_tpu_torch.utils import profiling as prof
+
+    xyz, motor, valid, truth, motor_h, dist_h, truth_h = _scan_inputs(gpu)
+    survey = _survey4(gpu)
+    jobs = {"scan": lambda: _stream_scan(xyz, motor, valid, truth),
+            "session": lambda: _session(gpu, motor_h, dist_h, truth_h),
+            "survey": survey}
+    for job in jobs.values():          # builds the kernels, warms the card
+        job()
+    torch.cuda.synchronize()
+
+    lifted = prof.sync
+
+    def sync(fn, *args, **kw):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return lifted(fn, *args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    monkeypatch.setattr(prof, "sync", sync)
+    outs = {}
+    for name, job in jobs.items():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs[name] = job()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    res, reg = outs["scan"]
+    assert int(res.n_clusters) > 50 and int(reg.iterations) >= 1
+    assert all(int(r.n_clusters) > 50 for r, _, _ in outs["session"])
+    assert int(outs["survey"][3]["n_landmarks"]) >= 4
+
+
+def test_a_kernel_launch_lies_inside_its_span(gpu):
+    """The runtime's launch of K3, on the profiler's clock, lies inside the
+    program span that launched it."""
+    from vtkcloudpoint_tpu_torch.utils import profiling as prof
+
+    q = torch.rand(4096, 3, device=gpu)
+    r = torch.rand(2048, 3, device=gpu)
+    v = torch.ones(2048, dtype=torch.bool, device=gpu)
+    k_nn.nn_cuda(q, r, v)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as p:
+        with prof.span("k3") as span:
+            k_nn.nn_cuda(q, r, v)
+        torch.cuda.synchronize()
+    events = p.profiler.kineto_results.events()
+    launches = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                for e in events if e.name().startswith("cudaLaunchKernel")]
+    assert launches
+    for s, e in launches:
+        assert span.start_ns <= s <= e <= span.end_ns

@@ -22,6 +22,7 @@ import torch
 
 from ..device import resolve_backend
 from ..ops.metrics import pairwise
+from ..utils import profiling as prof
 
 
 def _threshold(eps: float) -> float:
@@ -44,11 +45,14 @@ def fixpoint(step, x, max_iters: int):
     """Apply ``step`` until a step changes nothing, at least once and at most
     ``max_iters`` times (the JAX package's first step outside its while loop,
     then ``while changed and it < max_iters``). Reads one flag from the
-    device per step; returns the last value."""
+    device per step and counts each step in ``sweeps``; returns the last
+    value."""
     new = step(x)
+    prof.count("sweeps")
     it = 1
-    while it < max_iters and bool((new != x).any()):
+    while it < max_iters and prof.sync(bool, (new != x).any()):
         x, new = new, step(new)
+        prof.count("sweeps")
         it += 1
     return new
 
@@ -71,7 +75,7 @@ def _min_label_fixpoint(core_adj, core, max_iters: int):
     """
     n = core.shape[-1]
     idx = torch.arange(n, dtype=torch.int32, device=core.device)
-    inf = torch.tensor(n, dtype=torch.int32, device=core.device)
+    inf = prof.sync(torch.tensor, n, dtype=torch.int32, device=core.device)
 
     def sweep(lab):
         nbr = torch.where(core_adj, lab[..., None, :], inf).amin(dim=-1)
@@ -127,7 +131,7 @@ def dbscan_dense_chunked(coords, valid, eps: float, min_pts: int,
     dbscan_padded."""
     n = coords.shape[0]
     chunk = max(min(chunk, n), 1)
-    inf = torch.tensor(n, dtype=torch.int32, device=coords.device)
+    inf = prof.sync(torch.tensor, n, dtype=torch.int32, device=coords.device)
     idx = torch.arange(n, dtype=torch.int32, device=coords.device)
     thr = _threshold(eps)
 

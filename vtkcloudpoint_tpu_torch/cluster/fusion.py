@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling as prof
 from .dbscan import dbscan_dense_chunked, dbscan_padded
 from .grid import dbscan_grid, grid_metric
 
@@ -23,8 +24,9 @@ def _block_label_counts(block_labels, block_valid, kmax: int):
     B = block_labels.shape[0]
     flat = (torch.arange(B, device=block_labels.device)[:, None] * kmax
             + block_labels.long()).reshape(-1)
-    return torch.bincount(flat[block_valid.reshape(-1)],
-                          minlength=B * kmax).reshape(B, kmax)
+    sel = prof.sync(lambda: flat[block_valid.reshape(-1)])
+    return prof.sync(torch.bincount, sel, minlength=B * kmax).reshape(B,
+                                                                    kmax)
 
 
 def block_keep_rules(counts, min_cluster_size: int, quirks: bool):
@@ -107,7 +109,8 @@ def merge_blocks(block_labels, block_valid, block_coords, point_index,
 
     Returns dict: label i32[n_points] (0 noise), n_kept, n_total (reference
     dbb.clusterAmount semantics), noise_overflow (noise beyond capacity,
-    plus the grid engine's cell overflow).
+    plus the grid engine's cell overflow). The noise re-cluster records a
+    span ``noise``.
     """
     B, cap = block_labels.shape
     counts = _block_label_counts(block_labels, block_valid, cap + 1)
@@ -116,38 +119,41 @@ def merge_blocks(block_labels, block_valid, block_coords, point_index,
     point_gid = apply_block_gid(block_labels, block_valid, keep, gid)
 
     # noise re-cluster (FrmMain.cs:1507-1520)
-    noise_mask = block_valid & (point_gid == 0)
-    order, sel_valid = noise_pack_order(block_labels, noise_mask,
-                                        noise_capacity)
-    coords_flat = block_coords.reshape(B * cap, -1)
-    noise_coords = torch.where(sel_valid[:, None], coords_flat[order], 0.0)
+    with prof.span("noise"):
+        noise_mask = block_valid & (point_gid == 0)
+        order, sel_valid = noise_pack_order(block_labels, noise_mask,
+                                            noise_capacity)
+        coords_flat = block_coords.reshape(B * cap, -1)
+        noise_coords = torch.where(sel_valid[:, None], coords_flat[order],
+                                   0.0)
 
-    cf_seed = (n_kept - 1) if quirks else n_kept
-    gmetric = grid_metric(metric, noise_coords.shape[-1])
-    if noise_engine == "auto":
-        # the JAX package takes dense_chunked above DENSE_MAX only on a TPU,
-        # where the grid's stencil gathers are slow; the grid engine equals
-        # it only while its cell overflow is 0
-        if noise_capacity <= DENSE_MAX:
-            noise_engine = "dense"
+        cf_seed = (n_kept - 1) if quirks else n_kept
+        gmetric = grid_metric(metric, noise_coords.shape[-1])
+        if noise_engine == "auto":
+            # the JAX package takes dense_chunked above DENSE_MAX only on a
+            # TPU, where the grid's stencil gathers are slow; the grid engine
+            # equals it only while its cell overflow is 0
+            if noise_capacity <= DENSE_MAX:
+                noise_engine = "dense"
+            else:
+                noise_engine = ("grid" if gmetric is not None
+                                else "dense_chunked")
+        grid_overflow = 0
+        if noise_engine == "grid":
+            if gmetric is None:
+                raise ValueError(f"metric {metric!r} has no grid form; use "
+                                 "noise_engine='dense'")
+            re = dbscan_grid(noise_coords, sel_valid, eps, min_pts, gmetric,
+                             cf=cf_seed, cell_cap=noise_cell_cap)
+            grid_overflow = re["overflow"]
+        elif noise_engine == "dense_chunked":
+            re = dbscan_dense_chunked(noise_coords, sel_valid, eps, min_pts,
+                                      metric, cf=cf_seed)
+        elif noise_engine == "dense":
+            re = dbscan_padded(noise_coords, sel_valid, eps, min_pts, metric,
+                               cf=cf_seed)
         else:
-            noise_engine = "grid" if gmetric is not None else "dense_chunked"
-    grid_overflow = 0
-    if noise_engine == "grid":
-        if gmetric is None:
-            raise ValueError(f"metric {metric!r} has no grid form; use "
-                             "noise_engine='dense'")
-        re = dbscan_grid(noise_coords, sel_valid, eps, min_pts, gmetric,
-                         cf=cf_seed, cell_cap=noise_cell_cap)
-        grid_overflow = re["overflow"]
-    elif noise_engine == "dense_chunked":
-        re = dbscan_dense_chunked(noise_coords, sel_valid, eps, min_pts,
-                                  metric, cf=cf_seed)
-    elif noise_engine == "dense":
-        re = dbscan_padded(noise_coords, sel_valid, eps, min_pts, metric,
-                           cf=cf_seed)
-    else:
-        raise ValueError(f"unknown noise_engine {noise_engine!r}")
+            raise ValueError(f"unknown noise_engine {noise_engine!r}")
     n_total = cf_seed + re["n_clusters"]
 
     # scatter re-cluster labels back into the block grid, then to the
@@ -159,7 +165,8 @@ def merge_blocks(block_labels, block_valid, block_coords, point_index,
     has = pi >= 0
     label = torch.zeros(n_points, dtype=torch.int32,
                         device=block_labels.device)
-    label[pi[has].long()] = point_gid_flat[has]
+    label[prof.sync(lambda: pi[has]).long()] = prof.sync(
+        lambda: point_gid_flat[has])
     n_noise = noise_mask.sum(dtype=torch.int32)
     return {
         "label": label,

@@ -16,6 +16,7 @@ from ..config import EngineConfig
 from ..ops.geometry import cluster_shapes
 from ..ops.metrics import coords_for_metric
 from ..ops.segment import bucket_payload_by_cluster, cluster_stats
+from ..utils.profiling import span, spanned
 from .blocks import (assign_blocks_reference, gather_blocks,
                      partition_gather_sorted)
 from .dbscan import dbscan_blocks_dispatch, dbscan_padded
@@ -36,6 +37,7 @@ class ClusterResult(NamedTuple):
     noise_overflow: torch.Tensor  # i32[]
 
 
+@spanned
 def cluster_scan(xyz, motor, valid, cfg: EngineConfig = EngineConfig(), *,
                  mode: str = "reference", max_blocks: int = 256,
                  quirks: bool = True, noise_capacity: int = 2048,
@@ -51,62 +53,73 @@ def cluster_scan(xyz, motor, valid, cfg: EngineConfig = EngineConfig(), *,
     union-find (cluster/halo_fusion.py, ``halo_cap`` boundary points per
     block) after the reference-style fusion: a beyond-reference merge of
     clusters split across blocks.
+
+    Records a span ``cluster_scan`` with the children ``partition``,
+    ``dbscan``, ``fusion`` (the halo union included), ``stats`` (the
+    centroid merge included), ``bucket`` and ``shapes``.
     """
     n = xyz.shape[0]
     cc = cfg.cluster
-    coords = coords_for_metric(xyz, motor, cc.metric)
+    with span("partition"):
+        coords = coords_for_metric(xyz, motor, cc.metric)
+        if mode == "reference":
+            part = assign_blocks_reference(motor, valid, cc.pts_in_cell)
+            block_coords, block_valid, point_index, overflow = gather_blocks(
+                coords, part["block"], valid, max_blocks, cc.block_capacity)
+        elif mode == "balanced":
+            block_coords, block_valid, point_index, overflow = (
+                partition_gather_sorted(motor, valid, cc.block_capacity,
+                                        max_blocks, coords=coords))
+        else:
+            raise ValueError(f"unknown mode {mode!r}")
 
-    if mode == "reference":
-        part = assign_blocks_reference(motor, valid, cc.pts_in_cell)
-        block_coords, block_valid, point_index, overflow = gather_blocks(
-            coords, part["block"], valid, max_blocks, cc.block_capacity)
-    elif mode == "balanced":
-        block_coords, block_valid, point_index, overflow = (
-            partition_gather_sorted(motor, valid, cc.block_capacity,
-                                    max_blocks, coords=coords))
-    else:
-        raise ValueError(f"unknown mode {mode!r}")
+    with span("dbscan"):
+        db = dbscan_blocks_dispatch(
+            block_coords.contiguous(), block_valid, cc.eps, cc.min_pts,
+            cc.metric, max_iters=cc.propagate_max_iters, backend=backend)
 
-    db = dbscan_blocks_dispatch(
-        block_coords.contiguous(), block_valid, cc.eps, cc.min_pts,
-        cc.metric, max_iters=cc.propagate_max_iters, backend=backend)
+    with span("fusion"):
+        noise_capacity = min(noise_capacity, max_blocks * cc.block_capacity)
+        fused = merge_blocks(
+            db["label"], block_valid, block_coords, point_index, n, cc.eps,
+            cc.min_pts, cc.metric, min_cluster_size=cc.min_cluster_size,
+            quirks=quirks, noise_capacity=noise_capacity)
+        label = fused["label"]
+        n_clusters = fused["n_total"]
 
-    noise_capacity = min(noise_capacity, max_blocks * cc.block_capacity)
-    fused = merge_blocks(
-        db["label"], block_valid, block_coords, point_index, n, cc.eps,
-        cc.min_pts, cc.metric, min_cluster_size=cc.min_cluster_size,
-        quirks=quirks, noise_capacity=noise_capacity)
-    label = fused["label"]
-    n_clusters = fused["n_total"]
+        if halo_merge:
+            block_glabels = torch.where(
+                point_index >= 0, label[point_index.clamp(0, n - 1).long()],
+                0)
+            hm = halo_merge_labels(block_coords, block_valid, block_glabels,
+                                   db["core"], n_clusters, cc.eps, cc.metric,
+                                   halo_cap=halo_cap, max_ids=max_clusters)
+            label = apply_halo_merge(label, hm["remap"])
+            n_clusters = hm["n_after"]
 
-    if halo_merge:
-        block_glabels = torch.where(
-            point_index >= 0, label[point_index.clamp(0, n - 1).long()], 0)
-        hm = halo_merge_labels(block_coords, block_valid, block_glabels,
-                               db["core"], n_clusters, cc.eps, cc.metric,
-                               halo_cap=halo_cap, max_ids=max_clusters)
-        label = apply_halo_merge(label, hm["remap"])
-        n_clusters = hm["n_after"]
-
-    stats = cluster_stats(xyz, motor, label, valid, max_clusters)
-    if centroid_merge:
-        mg = merge_centroid_clusters(stats["center3d"][:, :2],
-                                     stats["count"] > 0, cc.merge_threshold,
-                                     cc.merge_min_pts)
-        label = mg["remap"][label.clamp(0, max_clusters - 1).long()]
-        n_clusters = mg["n_after"]
+    with span("stats"):
         stats = cluster_stats(xyz, motor, label, valid, max_clusters)
+        if centroid_merge:
+            mg = merge_centroid_clusters(stats["center3d"][:, :2],
+                                         stats["count"] > 0,
+                                         cc.merge_threshold,
+                                         cc.merge_min_pts)
+            label = mg["remap"][label.clamp(0, max_clusters - 1).long()]
+            n_clusters = mg["n_after"]
+            stats = cluster_stats(xyz, motor, label, valid, max_clusters)
 
     # circumcircles in (X, Y) and in motor coordinates: one payload table,
     # one batched [2K] shapes call
-    pay = (xyz[:, 0], xyz[:, 1], motor[:, 0], motor[:, 1])
-    tabs, tval, runs, _ = bucket_payload_by_cluster(
-        label, valid, pay, max_clusters, cluster_capacity)
-    both = torch.cat([tabs[..., 0:2], tabs[..., 2:4]], dim=0).contiguous()
-    sh = cluster_shapes(both, torch.cat([tval, tval]),
-                        torch.cat([runs, runs]), max_hull=max_hull,
-                        min_points=cfg.filters.circle_min_points,
-                        backend=backend)
+    with span("bucket"):
+        pay = (xyz[:, 0], xyz[:, 1], motor[:, 0], motor[:, 1])
+        tabs, tval, runs, _ = bucket_payload_by_cluster(
+            label, valid, pay, max_clusters, cluster_capacity)
+        both = torch.cat([tabs[..., 0:2], tabs[..., 2:4]], dim=0).contiguous()
+    with span("shapes"):
+        sh = cluster_shapes(both, torch.cat([tval, tval]),
+                            torch.cat([runs, runs]), max_hull=max_hull,
+                            min_points=cfg.filters.circle_min_points,
+                            backend=backend)
     return ClusterResult(
         label=label,
         n_clusters=n_clusters,

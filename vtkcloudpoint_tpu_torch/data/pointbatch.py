@@ -14,12 +14,13 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..utils import profiling as prof
 
 
 def _host(a):
     """A tensor or array-like as a numpy array."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        return prof.sync(lambda: a.detach().cpu().numpy())
     return np.asarray(a)
 
 
@@ -94,7 +95,7 @@ class PointBatch:
         def pad(a, fill, dt, shape_tail=()):
             out = np.full((cap,) + shape_tail, fill, dtype=dt)
             out[:n] = _host(a)
-            return torch.from_numpy(out).to(device)
+            return prof.sync(torch.from_numpy(out).to, device)
 
         return PointBatch(
             xyz=pad(xyz, 0.0, np_dt, (3,)),

@@ -14,6 +14,9 @@ port's copies of the numpy-only loaders, vtkio and snapshot.
     matches = eng.match(result, truth_xyz, reg)
     eng.export_scene("out/scene", batch, result, matches)
 
+Each public method records one span of its own name
+(utils/profiling.py).
+
 ``cfg.backend``: "auto" runs the hand-written kernels on a CUDA device and
 the plain PyTorch versions on the CPU; "torch" runs the plain versions on
 any device; the JAX values "pallas" and "jnp" raise.
@@ -40,6 +43,8 @@ from .ops.segment import cluster_stats
 from .register.coarse import auto_rescale_centers, rescale_region_truth
 from .register.icp import ICPResult, icp, icp_multistart, icp_ransac
 from .register.matching import assign_matches, registration_rmse
+from .utils import profiling as prof
+from .utils.profiling import spanned
 from .viz import vtkio
 
 
@@ -59,10 +64,12 @@ class Engine:
         self.export_bit = 4  # decimal places for exports; import sniffs it
 
     def _tensor(self, x, dtype=torch.float32):
-        return torch.as_tensor(_host(x)).to(device=self.device, dtype=dtype)
+        return prof.sync(torch.as_tensor(_host(x)).to, device=self.device,
+                         dtype=dtype)
 
     # ---- ingestion (C2-C5) ----
 
+    @spanned
     def import_folder(self, folder: str, pattern: str = "*.txt"):
         batch, names = import_scan_folder(folder, self.cfg.imports, pattern,
                                           device=self.device)
@@ -73,10 +80,12 @@ class Engine:
             self.export_bit = loaders.sniff_decimals(files[0])
         return batch, names
 
+    @spanned
     def import_arrays(self, motor, rng, capacity: Optional[int] = None):
         return import_scan_arrays(motor, rng, self.cfg.imports, capacity,
                                   device=self.device)
 
+    @spanned
     def filter_by_distance(self, batch: PointBatch, dis_min: float,
                            dis_max: float, path_id: Optional[int] = None
                            ) -> PointBatch:
@@ -87,6 +96,7 @@ class Engine:
             keep = keep | (batch.path_id != path_id)
         return batch.with_valid(batch.valid & keep)
 
+    @spanned
     def set_file_visibility(self, batch: PointBatch, visible) -> PointBatch:
         """Per-file show/hide (treeView1_AfterCheck, FrmMain.cs:2497-2609);
         ``visible`` is a bool array indexed by path_id."""
@@ -96,6 +106,7 @@ class Engine:
 
     # ---- clustering (C6-C15) ----
 
+    @spanned
     def cluster(self, batch: PointBatch, mode: str = "reference",
                 centroid_merge: bool = False, quirks: bool = False,
                 **caps) -> ClusterResult:
@@ -114,6 +125,7 @@ class Engine:
                             centroid_merge=centroid_merge,
                             backend=self.backend, **defaults)
 
+    @spanned
     def cluster_grid(self, batch: PointBatch, cell_cap: int = 64,
                      max_clusters: int = 4096):
         """Tier-3 global path: grid-hash DBSCAN over the whole scan (no
@@ -133,6 +145,7 @@ class Engine:
                               batch.valid, max_clusters)
         return out, stats
 
+    @spanned
     def cluster_sharded(self, batch: PointBatch, mesh=None,
                         halo_mode: str = "hier", block_capacity: int = None,
                         density: float = None, **kw):
@@ -188,6 +201,7 @@ class Engine:
         out["point_index"] = shard_blocks(mesh, pidx)
         return out
 
+    @spanned
     def reject_by_radius(self, batch: PointBatch, result: ClusterResult,
                          radius: Optional[float] = None,
                          aspect: Optional[float] = None):
@@ -200,6 +214,7 @@ class Engine:
 
     # ---- registration (C18-C22) ----
 
+    @spanned
     def coarse_align(self, result: ClusterResult, truth_xyz,
                      region_mask=None):
         """Extent auto-rescale of the centroids onto the truth, optionally
@@ -222,6 +237,7 @@ class Engine:
         truth_tmp = torch.cat([t_xy, torch.zeros_like(t_xy[:, :1])], dim=-1)
         return centers_tmp, truth_tmp
 
+    @spanned
     def register_to_truth(self, result: ClusterResult, truth_xyz,
                           coarse: bool = True, region_mask=None,
                           generator: Optional[torch.Generator] = None
@@ -248,6 +264,7 @@ class Engine:
                                   backend=self.backend)
         return icp(src, cvalid, tgt, tvalid, icfg, backend=self.backend)
 
+    @spanned
     def match(self, result: ClusterResult, truth_xyz, reg: ICPResult,
               coarse: bool = True, match_distance: Optional[float] = None):
         truth_xyz = self._tensor(truth_xyz)
@@ -268,6 +285,7 @@ class Engine:
 
     # ---- export / viz (C25, Tools export) ----
 
+    @spanned
     def export_scene(self, prefix: str, batch: PointBatch,
                      result: ClusterResult, matches=None, truth_tmp=None):
         data = batch.to_numpy()
@@ -282,6 +300,7 @@ class Engine:
             ends = _host(truth_tmp)[_host(matches["match_idx"])[m]]
             vtkio.write_lines_vtk(prefix + "_matches.vtk", starts, ends)
 
+    @spanned
     def screenshot(self, path: str, batch: PointBatch,
                    result: Optional[ClusterResult] = None,
                    view: str = "xy", width: int = 800, height: int = 600,
@@ -299,12 +318,14 @@ class Engine:
             width=width, height=height, point_size=point_size,
             counts=counts)
 
+    @spanned
     def export_centroids(self, path: str, result: ClusterResult,
                          bit: Optional[int] = None):
         live = _host(_live_clusters(result))
         loaders.export_centroids(path, _host(result.center3d)[live],
                                  bit if bit is not None else self.export_bit)
 
+    @spanned
     def export_cluster_points(self, path: str, batch: PointBatch,
                               result: ClusterResult,
                               bit: Optional[int] = None,

@@ -18,6 +18,7 @@ from ..config import ImportConfig
 from ..data.convert import motor_to_xyz, range_gate
 from ..data.pointbatch import PointBatch, _host
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..utils import profiling as prof
 from .loaders import dedup_exact, load_folder
 
 
@@ -36,10 +37,13 @@ def import_scan_arrays(motor, rng, cfg: ImportConfig = ImportConfig(),
     ``path_id`` (each point's source-file index) follows the points through
     the range gate and the dedup, which keeps the first occurrence's file."""
     device = resolve_device(device)
-    motor_t = torch.as_tensor(_host(motor)).to(device=device, dtype=dtype)
-    rng_t = torch.as_tensor(_host(rng)).to(device=device, dtype=dtype)
+    motor_t = prof.sync(torch.as_tensor(_host(motor)).to, device=device,
+                        dtype=dtype)
+    rng_t = prof.sync(torch.as_tensor(_host(rng)).to, device=device,
+                      dtype=dtype)
     keep = range_gate(rng_t, cfg)
-    motor_t, rng_t = motor_t[keep], rng_t[keep]
+    motor_t = prof.sync(lambda: motor_t[keep])
+    rng_t = prof.sync(lambda: rng_t[keep])
     pid = (None if path_id is None
            else np.asarray(path_id, np.int32)[_host(keep)])
     xyz = _host(motor_to_xyz(motor_t, rng_t, cfg))

@@ -31,6 +31,7 @@ import numpy as _np
 import torch
 
 from ..device import resolve_backend
+from ..utils import profiling as prof
 
 BIG = 1e30
 
@@ -79,7 +80,7 @@ def convex_hull(pts, valid, max_hull: int = 64):
     out = torch.full((K, max_hull), -1, dtype=torch.int64, device=dev)
     out[:, :1] = start
     for i in range(max_hull - 1):
-        if bool(done.all()):
+        if prof.sync(bool, done.all()):
             break
         cx, cy = _take(x, cur), _take(y, cur)
         ang = pseudo_angle(cx, cy, x, y)
@@ -171,7 +172,7 @@ def convex_hull_quick(pts, valid, max_hull: int = 64):
 
     idx, done = round_step(idx)
     it = 1
-    while it < h and not bool(done.all()):
+    while it < h and not prof.sync(bool, done.all()):
         new_idx, new_done = round_step(idx)
         idx = torch.where(done[:, None], idx, new_idx)
         done = done | new_done
@@ -424,7 +425,7 @@ def min_enclosing_circle_eh(hull_pts, hull_valid, max_rounds: int = None):
 
     s_idx, s_val, cx, cy, r2, done = body(s_idx, s_val)
     it = 1
-    while it < max_rounds and not bool(done.all()):
+    while it < max_rounds and not prof.sync(bool, done.all()):
         new = body(s_idx, s_val)
         keep = done
         s_idx = torch.where(keep[:, None], s_idx, new[0])

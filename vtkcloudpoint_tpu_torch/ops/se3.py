@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from .. import device as _device  # noqa: F401  (full-f32 matmuls)
+from ..utils import profiling as prof
 
 
 def quat_to_rot(q):
@@ -28,8 +29,12 @@ def horn_from_moments(sw, sp, sy, spy):
     """Horn solve from weighted moment sums: sw = sum w, sp = sum w p,
     sy = sum w y, spy = sum w p y^T. The 4x4 symmetric N-matrix's top
     eigenvector is the rotation quaternion."""
-    sw = torch.clamp_min(torch.as_tensor(sw, dtype=spy.dtype,
-                                         device=spy.device), 1e-30)
+    if isinstance(sw, torch.Tensor):
+        sw = torch.as_tensor(sw, dtype=spy.dtype, device=spy.device)
+    else:                                   # a copy from the host
+        sw = prof.sync(torch.as_tensor, sw, dtype=spy.dtype,
+                       device=spy.device)
+    sw = torch.clamp_min(sw, 1e-30)
     mean_p = sp / sw
     mean_y = sy / sw
     m = spy / sw - torch.outer(mean_p, mean_y)
@@ -42,8 +47,8 @@ def horn_from_moments(sw, sp, sy, spy):
     q_mat[1:, 0] = delta
     q_mat[1:, 1:] = m + m.T - tr * torch.eye(3, dtype=spy.dtype,
                                              device=spy.device)
-    evals, evecs = torch.linalg.eigh(q_mat)
-    q = evecs[:, torch.argmax(evals)]
+    evals, evecs = prof.sync(torch.linalg.eigh, q_mat)   # its error check
+    q = prof.sync(lambda: evecs[:, torch.argmax(evals)])
     r = quat_to_rot(q)
     return r, mean_y - r @ mean_p
 
@@ -71,7 +76,7 @@ def kabsch_solve(p, y, weights=None):
     RigidBody equivalent."""
     wn, mean_p, mean_y = _weighted_means(p, y, weights)
     h = ((p - mean_p) * wn).T @ (y - mean_y)
-    u, _, vt = torch.linalg.svd(h)
+    u, _, vt = prof.sync(torch.linalg.svd, h)       # its error check
     d = torch.sign(torch.linalg.det(vt.T @ u.T))
     s = torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d), d]))
     r = vt.T @ s @ u.T

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling as prof
+
 
 # the fixed-point sums of _segment_sum keep every partial sum below 2^62
 _FIXED_BITS = 62
@@ -64,7 +66,7 @@ def _segment_sum(values, ok, seg, num_segments: int):
         return out.index_add_(0, idx, values)[:num_segments]
     v = masked_rows(values, ok)
     amax = column_max(v)
-    if not bool(torch.isfinite(amax).all()):
+    if not prof.sync(bool, torch.isfinite(amax).all()):
         out = torch.zeros(shape, dtype=torch.float64, device=values.device)
         return out.index_add_(0, idx, v)[:num_segments]
     q, k = fixed_point_sums(v, ok, seg, num_segments, amax, v.shape[0])
@@ -109,7 +111,9 @@ def from_fixed_point(q, k):
 def cluster_counts(label, valid, num_segments: int):
     """Point count per cluster id, i32[num_segments] (row 0 = noise)."""
     ok, seg = _segments(label, valid, num_segments)
-    return torch.bincount(seg[ok], minlength=num_segments).to(torch.int32)
+    sel = prof.sync(lambda: seg[ok])
+    return prof.sync(torch.bincount, sel, minlength=num_segments).to(
+        torch.int32)
 
 
 def cluster_means(values, label, valid, num_segments: int, weights=None):
@@ -179,11 +183,12 @@ def bucket_payload_by_cluster(label, valid, payload, num_segments: int,
     run = (first[1:] - first[:-1]).to(torch.int32)
     keep = (rank < capacity) & (sorted_lab >= 0) & (
         sorted_lab < num_segments)
-    flat = sorted_lab[keep] * capacity + rank[keep]
+    flat = (prof.sync(lambda: sorted_lab[keep]) * capacity
+            + prof.sync(lambda: rank[keep]))
     p = payload.shape[1]
     tables = torch.zeros((num_segments * capacity, p), dtype=payload.dtype,
                          device=payload.device)
-    tables[flat] = payload[order[keep]]
+    tables[flat] = payload[prof.sync(lambda: order[keep])]
     slot_valid = (torch.arange(capacity, device=label.device)[None, :]
                   < torch.clamp_max(run, capacity)[:, None])
     return (tables.reshape(num_segments, capacity, p), slot_valid, run,
@@ -199,8 +204,9 @@ def bucket_by_cluster(label, valid, num_segments: int, capacity: int):
         sorted_lab < num_segments)
     table = torch.full((num_segments * capacity,), -1, dtype=torch.int32,
                        device=label.device)
-    table[sorted_lab[keep] * capacity + rank[keep]] = order[keep].to(
-        torch.int32)
+    table[prof.sync(lambda: sorted_lab[keep]) * capacity
+          + prof.sync(lambda: rank[keep])] = prof.sync(
+        lambda: order[keep]).to(torch.int32)
     counts = cluster_counts(label, valid, num_segments)
     return (table.reshape(num_segments, capacity),
             torch.clamp_min(counts - capacity, 0))

@@ -14,6 +14,11 @@ through the host.
 NCCL has no bool reductions, so flags reduce as int32. At world size 1 the
 ring hop is the identity; every other collective still goes through the
 (one-rank) communicator.
+
+Each collective records a span ``collective.<op>`` (all_reduce, any,
+all_gather, all_to_all, ppermute_ring) whose counter ``bytes`` is the
+payload this rank hands it: its input's bytes, for all_to_all those of the
+slots bound for other ranks (not the algorithm's traffic on the wire).
 """
 from __future__ import annotations
 
@@ -24,12 +29,17 @@ import torch
 import torch.distributed as dist
 
 from ..device import DEFAULT_DEVICE
+from ..utils import profiling as prof
 
 # the output is the ranks' inputs concatenated along dim 0. torch 2.13
 # deprecates all_gather_into_tensor (it warns on every call) for
 # all_gather_single, which older torch (2.11) may lack.
 _all_gather = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
+
+
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size()
 
 
 def _local_device(device):
@@ -79,7 +89,9 @@ class Mesh:
     def _reduce(self, x, op):
         x = self._check(x)
         out = x.to(torch.int32) if x.dtype == torch.bool else x.clone()
-        dist.all_reduce(out, op=op, group=self.group)
+        with prof.span("collective.all_reduce"):
+            prof.count("bytes", _nbytes(out))
+            dist.all_reduce(out, op=op, group=self.group)
         return out
 
     def psum(self, x):
@@ -98,9 +110,10 @@ class Mesh:
         """A Python bool every rank reads alike: the all_reduce(MAX) of a
         local flag. Every loop whose trip count gates a collective ends on
         this, never on a local value."""
-        t = torch.as_tensor(flag, device=self.device).reshape(()).to(
-            torch.int32)
-        return bool(self.pmax(t))
+        with prof.span("collective.any"):
+            t = torch.as_tensor(flag, device=self.device).reshape(()).to(
+                torch.int32)
+            return prof.sync(bool, self.pmax(t))
 
     def all_gather(self, x):
         """[size, *x.shape]: every rank's x in rank order."""
@@ -108,7 +121,9 @@ class Mesh:
         w = self._wire(x).reshape((-1,) + tuple(x.shape[1:]))
         out = torch.empty((self.size * w.shape[0],) + tuple(w.shape[1:]),
                           dtype=w.dtype, device=self.device)
-        _all_gather(out, w, group=self.group)
+        with prof.span("collective.all_gather"):
+            prof.count("bytes", _nbytes(w))
+            _all_gather(out, w, group=self.group)
         return out.reshape((self.size,) + tuple(x.shape)).to(x.dtype)
 
     def all_to_all(self, x):
@@ -121,7 +136,9 @@ class Mesh:
                              f"got {tuple(x.shape)}")
         w = self._wire(x)
         out = torch.empty_like(w)
-        dist.all_to_all_single(out, w, group=self.group)
+        with prof.span("collective.all_to_all"):
+            prof.count("bytes", _nbytes(w) * (self.size - 1) // self.size)
+            dist.all_to_all_single(out, w, group=self.group)
         return out.to(x.dtype)
 
     def ppermute_ring(self, x):
@@ -134,11 +151,13 @@ class Mesh:
         out = torch.empty_like(w)
         nxt = dist.get_global_rank(self.group, (self.rank + 1) % self.size)
         prv = dist.get_global_rank(self.group, (self.rank - 1) % self.size)
-        reqs = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, w, nxt, self.group),
-            dist.P2POp(dist.irecv, out, prv, self.group)])
-        for r in reqs:
-            r.wait()
+        with prof.span("collective.ppermute_ring"):
+            prof.count("bytes", _nbytes(w))
+            reqs = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, w, nxt, self.group),
+                dist.P2POp(dist.irecv, out, prv, self.group)])
+            for r in reqs:
+                r.wait()
         return out.to(x.dtype)
 
 

@@ -13,6 +13,8 @@ import dataclasses
 
 import torch
 
+from ..utils import profiling as prof
+
 BIG = 1e30
 
 
@@ -79,7 +81,8 @@ def points_in_box(xy, box: RegionBox):
 
 def translate_points(xy, dx: float, dy: float):
     """Keyboard point-set move (ProcessCmdKey translate branch)."""
-    return xy + torch.tensor([dx, dy], dtype=xy.dtype, device=xy.device)
+    return xy + prof.sync(torch.tensor, [dx, dy], dtype=xy.dtype,
+                          device=xy.device)
 
 
 def zoom_points(xy, factor: float):

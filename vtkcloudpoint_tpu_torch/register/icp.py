@@ -27,6 +27,7 @@ from ..config import ICPConfig
 from ..device import DEFAULT_DEVICE, resolve_backend, resolve_device
 from ..kernels.neighbor import nn_cuda, nn_plain
 from ..ops import se3
+from ..utils import profiling as prof
 
 
 class ICPResult(NamedTuple):
@@ -53,41 +54,44 @@ def icp_loop(source, source_valid, target, target_valid, cfg: ICPConfig,
     """The ICP iteration of ``icp`` and ``nn_grid.icp_grid``.
     ``correspond(p)`` gives (idx, d2, w) for the moved sources p: the
     nearest target, its squared distance and the bool mask of the sources
-    that enter the solve and the error."""
-    dtype, dev = source.dtype, source.device
-    w_src = source_valid.to(dtype)
-    n_src = torch.clamp_min(w_src.sum(), 1.0)
-    if r0 is None:
-        r0 = torch.eye(3, dtype=dtype, device=dev)
-    if t0 is None:
-        if cfg.start_by_matching_centroids:
-            mean_s = (source * w_src[:, None]).sum(dim=0) / n_src
-            w_tgt = target_valid.to(dtype)
-            mean_t = (target * w_tgt[:, None]).sum(dim=0) / torch.clamp_min(
-                w_tgt.sum(), 1.0)
-            t0 = mean_t - r0 @ mean_s
-        else:
-            t0 = torch.zeros(3, dtype=dtype, device=dev)
-    solve = se3.horn_solve if cfg.solver == "horn" else se3.kabsch_solve
+    that enter the solve and the error. Records a span ``icp`` counting
+    its ``iterations``."""
+    with prof.span("icp"):
+        dtype, dev = source.dtype, source.device
+        w_src = source_valid.to(dtype)
+        n_src = torch.clamp_min(w_src.sum(), 1.0)
+        if r0 is None:
+            r0 = torch.eye(3, dtype=dtype, device=dev)
+        if t0 is None:
+            if cfg.start_by_matching_centroids:
+                mean_s = (source * w_src[:, None]).sum(dim=0) / n_src
+                w_tgt = target_valid.to(dtype)
+                mean_t = ((target * w_tgt[:, None]).sum(dim=0)
+                          / torch.clamp_min(w_tgt.sum(), 1.0))
+                t0 = mean_t - r0 @ mean_s
+            else:
+                t0 = torch.zeros(3, dtype=dtype, device=dev)
+        solve = se3.horn_solve if cfg.solver == "horn" else se3.kabsch_solve
 
-    r, t = r0, t0
-    d = torch.tensor(math.inf, dtype=dtype, device=dev)
-    prev_d = d
-    it = 0
-    converged = False
-    while not converged and it < cfg.max_iterations:
-        p = se3.apply_rigid(r, t, source)
-        idx, d2, w = correspond(p)
-        y = target[idx.long()]
-        d = torch.where(w, d2, 0.0).sum()
-        r1, t1 = solve(p, y, weights=w.to(dtype))
-        r, t = se3.compose(r1, t1, r, t)
-        converged = bool(torch.abs(d - prev_d) < cfg.tol)
+        r, t = r0, t0
+        d = prof.sync(torch.tensor, math.inf, dtype=dtype, device=dev)
         prev_d = d
-        it += 1
-    return ICPResult(r=r, t=t, error=d,
-                     iterations=torch.tensor(it, dtype=torch.int32),
-                     converged=torch.tensor(converged))
+        it = 0
+        converged = False
+        while not converged and it < cfg.max_iterations:
+            p = se3.apply_rigid(r, t, source)
+            idx, d2, w = correspond(p)
+            y = target[idx.long()]
+            d = torch.where(w, d2, 0.0).sum()
+            r1, t1 = solve(p, y, weights=w.to(dtype))
+            r, t = se3.compose(r1, t1, r, t)
+            converged = prof.sync(bool, torch.abs(d - prev_d) < cfg.tol)
+            prev_d = d
+            it += 1
+            prof.count("iterations")
+        return ICPResult(r=r, t=t, error=d,
+                         iterations=torch.tensor(it, dtype=torch.int32),
+                         converged=torch.tensor(converged))
 
 
 def icp(source, source_valid, target, target_valid,
@@ -120,10 +124,11 @@ def ransac_sample(source_valid, target_valid, iters: int, generator=None):
     g = _generator(generator)
 
     def draw(valid):
-        w = valid.to(device=g.device, dtype=torch.float32)
+        w = prof.sync(valid.to, device=g.device, dtype=torch.float32)
         w = (w / w.sum()).expand(iters, -1)
-        return torch.multinomial(w, 2, replacement=True, generator=g).to(
-            source_valid.device)
+        return prof.sync(torch.multinomial(w, 2, replacement=True,
+                                           generator=g).to,
+                         source_valid.device)
 
     return draw(source_valid), draw(target_valid)
 
@@ -169,7 +174,8 @@ def ransac_init(source, source_valid, target, target_valid,
                                   target_valid, inlier_threshold, si, tj,
                                   chunk, backend)
     best = torch.argmax(scores)
-    return rs[best], ts[best], scores[best]
+    return (prof.sync(lambda: rs[best]), prof.sync(lambda: ts[best]),
+            prof.sync(lambda: scores[best]))
 
 
 def icp_ransac(source, source_valid, target, target_valid,
@@ -195,7 +201,8 @@ def multistart_rotations(k: int, generator=None, dtype=torch.float32,
     thetas = torch.arange(n_z, dtype=dtype) * (2.0 * math.pi / max(n_z, 1))
     rots = [se3.rotz(th) for th in thetas]
     rots += [se3.random_rotation(g, dtype) for _ in range(k - n_z)]
-    return torch.stack([r.to(device=device, dtype=dtype) for r in rots])
+    return torch.stack([prof.sync(r.to, device=device, dtype=dtype)
+                        for r in rots])
 
 
 def icp_best_of(source, source_valid, target, target_valid,
@@ -205,7 +212,8 @@ def icp_best_of(source, source_valid, target, target_valid,
     error, the first on ties."""
     runs = [icp(source, source_valid, target, target_valid, cfg, r0=r0,
                 chunk=chunk, backend=backend) for r0 in r0s]
-    best = int(torch.argmin(torch.stack([r.error for r in runs])))
+    best = prof.sync(int, torch.argmin(torch.stack([r.error
+                                                    for r in runs])))
     return runs[best]
 
 

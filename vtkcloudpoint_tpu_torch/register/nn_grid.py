@@ -28,6 +28,7 @@ import torch
 
 from ..cluster.grid import reciprocal
 from ..config import ICPConfig
+from ..utils import profiling as prof
 from .icp import icp_loop, nn_correspond
 
 _INT_MAX = 2**31 - 1
@@ -86,7 +87,7 @@ def _stencil_query(grid: NNGrid, query, cell_size: float, cell_cap: int,
                        torch.full_like(qc, -1))
     sx, sy = grid.strides[0], grid.strides[1]
     base = (qc[:, 0] + 1) * sx + (qc[:, 1] + 1) * sy + (qc[:, 2] + 1)
-    offs = torch.tensor(_OFFS, device=dev)
+    offs = prof.sync(torch.tensor, _OFFS, device=dev)
     want = base[:, None] + (offs[:, 0] * sx + offs[:, 1] * sy + offs[:, 2])
     k_idx = torch.arange(cell_cap, device=dev)
     thr = float(np.float32(cell_size * cell_size))

@@ -37,6 +37,7 @@ from torch.func import jacfwd, vmap
 from .. import device as _device  # noqa: F401  (full-f32 matmuls)
 from ..ops import se3
 from ..ops.segment import segment_sum
+from ..utils import profiling as prof
 from .posegraph import PoseGraph, _residuals
 
 GAUGE_WEIGHT = 1e6  # prior stiffness pinning pose 0 (matches posegraph 1e3^2)
@@ -114,9 +115,10 @@ def _solve_spd(h, g):
     d = torch.sqrt(torch.clamp_min(torch.diagonal(h), 1e-20))
     hs = h / (d[:, None] * d[None, :])
     gs = g / d
-    x = torch.linalg.solve(hs, gs)
+    # each solve's error check reads the card
+    x = prof.sync(torch.linalg.solve, hs, gs)
     r = gs - hs @ x
-    x = x + torch.linalg.solve(hs, r)
+    x = x + prof.sync(torch.linalg.solve, hs, r)
     return x / d
 
 
@@ -252,7 +254,7 @@ def ba_schur_step(rots, trans, lms, obs: Observations, damping: float,
         hpp_d, gp, hll, gl, hpl, cost = out
 
     hll = hll + damping * torch.eye(3, dtype=dtype, device=dev)[None]
-    hll_inv = torch.linalg.inv(hll)
+    hll_inv = prof.sync(torch.linalg.inv, hll)
 
     # reduced camera system: Hred dxp = -(gp - Hpl Hll^-1 gl)
     w_mat = torch.einsum("slab,lbc->slac", hpl, hll_inv)        # [S,L,6,3]

@@ -21,6 +21,7 @@ from torch.func import jacfwd, vmap
 
 from .. import device as _device  # noqa: F401  (full-f32 matmuls)
 from ..ops import se3
+from ..utils import profiling as prof
 
 
 class PoseGraph(NamedTuple):
@@ -60,8 +61,9 @@ def optimize_pose_graph(rot0, t0, graph: PoseGraph, iterations: int = 10,
     """
     s = rot0.shape[0]
     dtype, dev = rot0.dtype, rot0.device
-    anchor_idx = torch.tensor([0, 1, 2, 3 * s, 3 * s + 1, 3 * s + 2],
-                              device=dev)
+    anchor_idx = prof.sync(torch.tensor,
+                           [0, 1, 2, 3 * s, 3 * s + 1, 3 * s + 2],
+                           device=dev)
     eye = torch.eye(6 * s, dtype=dtype, device=dev)
 
     def res_of_delta(dx, rots, trans):
@@ -77,7 +79,7 @@ def optimize_pose_graph(rot0, t0, graph: PoseGraph, iterations: int = 10,
         r0 = res_of_delta(zero, rots, trans)
         jmat = jacfwd(res_of_delta)(zero, rots, trans)
         h = jmat.T @ jmat + damping * eye
-        dx = -torch.linalg.solve(h, jmat.T @ r0)
+        dx = -prof.sync(torch.linalg.solve, h, jmat.T @ r0)
         rots = rots @ vmap(se3.so3_exp)(dx[:3 * s].reshape(s, 3))
         trans = trans + dx[3 * s:].reshape(s, 3)
     final_cost = (_residuals(rots, trans, graph) ** 2).sum()

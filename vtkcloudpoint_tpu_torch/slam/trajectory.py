@@ -10,9 +10,10 @@ correspondences come from K3, the nearest-neighbour kernel. The JAX
 ``lax.map`` / ``lax.scan`` loops are Python loops; results stay on the
 tensors' device.
 
-``slam_pipeline`` and ``slam_pipeline_ba`` take an optional ``timer``: a
-callable that, given a stage name (odometry, closures, posegraph,
-observations, ba), returns a context manager run around that stage.
+``slam_pipeline`` and ``slam_pipeline_ba`` record a root span ``slam`` and
+one span a stage (odometry, closures, posegraph, observations, ba), and take
+an optional ``timer``: a callable that, given a stage name, returns a
+context manager run around that stage.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from .. import device as _device  # noqa: F401  (full-f32 matmuls)
 from ..config import ICPConfig
 from ..ops import se3
 from ..register.icp import icp
+from ..utils import profiling as prof
 from .posegraph import PoseGraph
 
 
@@ -34,8 +36,12 @@ class Trajectory(NamedTuple):
     t: torch.Tensor   # [S,3]
 
 
+@contextlib.contextmanager
 def _stage(timer, name):
-    return timer(name) if timer is not None else contextlib.nullcontext()
+    """The caller's ``timer(name)`` around the program's span ``name``."""
+    with (timer(name) if timer is not None else contextlib.nullcontext()), \
+            prof.span(name):
+        yield
 
 
 def _stack(rs, ts, like):
@@ -93,7 +99,8 @@ def loop_closure_mask(positions, radius: float, min_separation: int = 5):
     s = positions.shape[0]
     d2 = ((positions[:, None, :] - positions[None, :, :]) ** 2).sum(dim=-1)
     ii, jj = torch.triu_indices(s, s, offset=1, device=positions.device)
-    r = torch.tensor(radius, dtype=positions.dtype, device=positions.device)
+    r = prof.sync(torch.tensor, radius, dtype=positions.dtype,
+                  device=positions.device)
     mask = (jj - ii >= min_separation) & (d2[ii, jj] < r * r)
     return ii.to(torch.int32), jj.to(torch.int32), mask
 
@@ -104,7 +111,7 @@ def detect_loop_closures(traj: Trajectory, radius: float,
     least ``min_separation`` apart in sequence: (i, j) i32 tensors on the
     trajectory's device."""
     li, lj, mask = loop_closure_mask(traj.t, radius, min_separation)
-    return li[mask], lj[mask]
+    return prof.sync(lambda: li[mask]), prof.sync(lambda: lj[mask])
 
 
 def closure_edges(scans, scan_valid, traj: Trajectory, li, lj,
@@ -112,8 +119,8 @@ def closure_edges(scans, scan_valid, traj: Trajectory, li, lj,
     """ICP each loop-closure pair (j registered onto i), initialised from
     the current odometry estimate. Returns (r_meas [L,3,3], t_meas [L,3])."""
     rs, ts = [], []
-    for i, j in zip(torch.as_tensor(li).tolist(),
-                    torch.as_tensor(lj).tolist()):
+    for i, j in zip(prof.sync(torch.as_tensor(li).tolist),
+                    prof.sync(torch.as_tensor(lj).tolist)):
         # init: i_from_j = world_from_i^{-1} o world_from_j
         ri, ti, rj, tj = traj.r[i], traj.t[i], traj.r[j], traj.t[j]
         res = icp(scans[j], scan_valid[j], scans[i], scan_valid[i], cfg,
@@ -165,6 +172,14 @@ def slam_pipeline(scans, scan_valid, icp_cfg: ICPConfig = ICPConfig(),
     """Full tier-4 pipeline: odometry -> loop closures -> pose-graph solve
     (block-sparse GN, slam.ba). Returns (Trajectory optimised, Trajectory
     odometry, cost)."""
+    with prof.span("slam"):
+        return _slam(scans, scan_valid, icp_cfg, loop_radius, gn_iterations,
+                     damping, backend, timer)
+
+
+def _slam(scans, scan_valid, icp_cfg, loop_radius, gn_iterations, damping,
+          backend, timer):
+    """slam_pipeline's stages, with no span of their own."""
     with _stage(timer, "odometry"):
         (r_rel, t_rel), traj = odometry_chain(scans, scan_valid, icp_cfg,
                                               backend)
@@ -266,24 +281,25 @@ def slam_pipeline_ba(scans, scan_valid, icp_cfg: ICPConfig = ICPConfig(),
     from .ba import (Observations, bundle_adjust, bundle_adjust_sharded,
                      observations_from_scans, pad_observations)
 
-    opt, odo, cost = slam_pipeline(scans, scan_valid, icp_cfg, loop_radius,
-                                   gn_iterations, damping, backend, timer)
-    with _stage(timer, "observations"):
-        obs, lms0, n_lm = observations_from_scans(
-            scans, scan_valid, opt.r, opt.t, landmark_eps, landmark_min_pts,
-            max_clusters_per_scan)
-    with _stage(timer, "ba"):
-        if mesh is not None:
-            from ..parallel.mesh import shard_blocks
+    with prof.span("slam"):
+        opt, odo, cost = _slam(scans, scan_valid, icp_cfg, loop_radius,
+                               gn_iterations, damping, backend, timer)
+        with _stage(timer, "observations"):
+            obs, lms0, n_lm = observations_from_scans(
+                scans, scan_valid, opt.r, opt.t, landmark_eps,
+                landmark_min_pts, max_clusters_per_scan)
+        with _stage(timer, "ba"):
+            if mesh is not None:
+                from ..parallel.mesh import shard_blocks
 
-            obs_loc = Observations(*(shard_blocks(mesh, x) for x in
-                                     pad_observations(obs, mesh.size)))
-            r_ba, t_ba, _, ba_cost = bundle_adjust_sharded(
-                mesh, opt.r, opt.t, lms0, obs_loc, iterations=ba_iterations,
-                damping=ba_damping)
-        else:
-            r_ba, t_ba, _, ba_cost = bundle_adjust(
-                opt.r, opt.t, lms0, obs, iterations=ba_iterations,
-                damping=ba_damping)
-    stats = {"graph_cost": cost, "ba_cost": ba_cost, "n_landmarks": n_lm}
-    return Trajectory(r_ba, t_ba), opt, odo, stats
+                obs_loc = Observations(*(shard_blocks(mesh, x) for x in
+                                         pad_observations(obs, mesh.size)))
+                r_ba, t_ba, _, ba_cost = bundle_adjust_sharded(
+                    mesh, opt.r, opt.t, lms0, obs_loc,
+                    iterations=ba_iterations, damping=ba_damping)
+            else:
+                r_ba, t_ba, _, ba_cost = bundle_adjust(
+                    opt.r, opt.t, lms0, obs, iterations=ba_iterations,
+                    damping=ba_damping)
+        stats = {"graph_cost": cost, "ba_cost": ba_cost, "n_landmarks": n_lm}
+        return Trajectory(r_ba, t_ba), opt, odo, stats
