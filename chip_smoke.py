@@ -11,6 +11,8 @@
    instructions counted from these inputs over the FP32 issue rate), and
    for K3 the time of torch.cdist + min, the nearest library composition
    (never called by the port); K2 also at max_hull 64 on the same tables;
+   K5, the ICP step, step by step from icp's start against
+   icp_step_plain (it replaces no library call: library_ms null);
 4. runs the tier-2 job of bench.py -- the 500,000-point cloud through
    cluster_scan (Morton partition, per-block DBSCAN, fusion with the noise
    re-cluster, centroids, per-cluster tables, hull + MEC + rectangle in two
@@ -36,8 +38,8 @@
 8. runs the tier-3 job of benchmarks/tier3_scale.py at full width (5M
    points, 4,883 blocks, the 65,536-slot noise re-cluster on the grid
    engine, 24,576 shape tables, ICP at N = 12,288, M = 5,120) through the
-   kernels and with the plain versions on the card, holds K1-K3 against
-   their plain versions at its shapes, checks the labels, overflow counters
+   kernels and with the plain versions on the card, holds K1-K3 and K5
+   against their plain versions at its shapes, checks the labels, overflow counters
    and ICP against the JAX package's float32 CPU result
    (tools/jax_reference_tier3.py), and times the noise stage on the grid
    engine against dense_chunked;
@@ -49,10 +51,11 @@
    each checked against the JAX CPU constants or K2;
 10. runs the tier-4 SLAM job of benchmarks/tier4_slam.py at full size (100
    scans of 2,048 points: ICP odometry, loop closures, pose-graph GN,
-   cluster-centroid BA) and scan-to-map on its scans, through K3 and with
-   the plain versions on the card (equal bit for bit), and in float64
-   against the JAX package's float64 CPU run (tools/jax_reference_tier4.py);
-   holds K3 against its plain version at N = M = 2,048;
+   cluster-centroid BA) and scan-to-map on its scans, through the kernels
+   and with the plain versions on the card (equal bit for bit), and in
+   float64 against the JAX package's float64 CPU run
+   (tools/jax_reference_tier4.py); holds K3 and K5 against their plain
+   versions at N = M = 2,048;
 11. runs the multi-device paths (parallel/) on a one-rank NCCL process
    group (world size 1: NCCL refuses two ranks on one card, so the
    multi-rank semantics are held on the CPU by tests/test_torch_sharded.py
@@ -204,8 +207,14 @@ JAX_SHARDED = {
             "bc9fe0e20c5e0a7f320d251b9cd9c257051a3b5d8bc1ccaf4af75bba2185da58")),
 }
 # sharded ICP against the single-device ICP on the card: the moment-form
-# Horn solve against horn_solve's centred one, float32
+# Horn solve in float32 against K5's float64 moments (2.2e-6 on an H100 at
+# tier 3)
 SHARDED_ICP_TOL = 1e-5
+# K5 against icp_step_plain, step by step from one state: R and t (float32,
+# |t| up to ~40 m at tier 2) within 1e-6 -- both round the same float64
+# moments' solve (Jacobi against eigh) to float32
+K5_POSE_TOL = 1e-6
+K5_STEPS = 4
 TIER4_STAGES = ("odometry", "closures", "posegraph", "observations", "ba")
 
 N_POINTS = 500_000
@@ -332,26 +341,31 @@ def sha256_of(label) -> str:
 
 
 def kernel_modules():
-    """K1-K3's wrapper modules by kernels-line name; each keeps the count
-    ``launches`` of its kernel's launches."""
+    """K1-K3's and K5's wrapper modules by kernels-line name; each keeps the
+    count of its kernel's launches under LAUNCH_COUNTER's name."""
     from vtkcloudpoint_tpu_torch.kernels import dbscan as k_dbscan
+    from vtkcloudpoint_tpu_torch.kernels import icp as k_icp
     from vtkcloudpoint_tpu_torch.kernels import neighbor as k_nn
     from vtkcloudpoint_tpu_torch.kernels import shapes as k_shapes
 
     return {"dbscan_block": k_dbscan, "cluster_shapes": k_shapes,
-            "nn_argmin": k_nn}
+            "nn_argmin": k_nn, "icp_step": k_icp}
+
+
+LAUNCH_COUNTER = {"icp_step": "step_launches"}
 
 
 def reset_launches():
-    for mod in kernel_modules().values():
-        mod.launches = 0
+    for name, mod in kernel_modules().items():
+        setattr(mod, LAUNCH_COUNTER.get(name, "launches"), 0)
 
 
 def read_launches():
     import torch
 
     torch.cuda.synchronize()
-    return {name: mod.launches for name, mod in kernel_modules().items()}
+    return {name: getattr(mod, LAUNCH_COUNTER.get(name, "launches"))
+            for name, mod in kernel_modules().items()}
 
 
 def hold_k1(bc, bv, eps, min_pts, where):
@@ -457,6 +471,55 @@ def hold_k3(query, ref, ref_valid, where):
                 n, m, qpb, k_nn.NN_BLOCKS_PER_SM * k_nn.sm_count(
                     query.device.index))[0]),
             "shape": "N=%d M=%d" % (n, m)}
+
+
+def hold_k5(src, sv, tgt, tv, cfg, where):
+    """K5 against icp_step_plain: K5_STEPS steps of icp from its start pose,
+    each from one state and K3's answer for its moved sources; R and t
+    within K5_POSE_TOL, d within one float32 ulp, the flags equal. Both
+    timed on a state that never converges (tol -1). Returns the
+    kernels-line fields."""
+    import torch
+
+    from vtkcloudpoint_tpu_torch.kernels import icp as k_icp
+    from vtkcloudpoint_tpu_torch.kernels import neighbor as k_nn
+    from vtkcloudpoint_tpu_torch.register.icp import _start
+
+    src, sv, tgt = src.contiguous(), sv.contiguous(), tgt.contiguous()
+    start = _start(src, sv, tgt, tv, cfg, None, None)
+    state = k_icp.init_state(*start, src)
+    err = 0.0
+    for step in range(K5_STEPS):
+        idx, d2 = k_nn.nn_cuda(state.p, tgt, tv)
+        plain = k_icp.StepState(*(x.clone() for x in state))
+        k_icp.icp_step_cuda(state, idx, d2, src, sv, tgt, cfg.tol,
+                            cfg.max_iterations)
+        k_icp.icp_step_plain(plain, idx, d2, src, sv, tgt, cfg.tol,
+                             cfg.max_iterations)
+        gap = float((state.pose[:12] - plain.pose[:12]).abs().max())
+        dk, dp = float(state.pose[12]), float(plain.pose[12])
+        require(torch.equal(state.flags, plain.flags) and gap <= K5_POSE_TOL
+                and abs(dk - dp) <= np.spacing(np.float32(abs(dp))),
+                f"K5 differs from the plain version ({where}) at step "
+                f"{step}: R, t {gap}, d {dk} vs {dp}, flags "
+                f"{state.flags.tolist()} vs {plain.flags.tolist()}")
+        err = max(err, gap)
+    timed = k_icp.init_state(*start, src)
+    idx, d2 = k_nn.nn_cuda(timed.p, tgt, tv)
+    plain = k_icp.StepState(*(x.clone() for x in timed))
+
+    def step(fn, st):
+        return lambda: fn(st, idx, d2, src, sv, tgt, -1.0, 2**30)
+
+    n, n_valid = src.shape[0], int(sv.sum())
+    return {"max_abs_err": err,
+            "ms": cuda_ms(step(k_icp.icp_step_cuda, timed), 200),
+            "plain_ms": cuda_ms(step(k_icp.icp_step_plain, plain), 20),
+            # p, idx, d2 and the valid byte in, 12 a gathered target row,
+            # source in and the next p out
+            **bound(n * (12 + 4 + 4 + 1) + n_valid * 12 + n * 24, 0),
+            "library_ms": None, "steps": K5_STEPS,
+            "shape": "N=%d valid=%d M=%d" % (n, n_valid, tgt.shape[0])}
 
 
 def first_icp_query(stats, truth):
@@ -952,11 +1015,12 @@ def tier3_result(s):
 def tier3_phase(dev, card, kernels):
     """(a) The 5M-point tier-3 job through the kernels and with the plain
     versions, checked against each other and the JAX CPU constants; K1-K3
-    held to their plain versions at its shapes; the noise stage on the grid
+    and K5 held to their plain versions at its shapes; the noise stage on the grid
     engine against dense_chunked. Returns (inputs, the job's namespace)."""
     import torch
 
     from vtkcloudpoint_tpu_torch.cluster.fusion import merge_blocks
+    from vtkcloudpoint_tpu_torch.config import ICPConfig
 
     inp = tier3_inputs(dev)
     T = inp.T
@@ -1018,7 +1082,11 @@ def tier3_phase(dev, card, kernels):
             "cluster_shapes": hold_k2(s.both, s.bval, T["max_hull"],
                                       "tier 3"),
             "nn_argmin": hold_k3(first_icp_query(s.stats, inp.truth),
-                                 inp.truth, inp.truth_valid, "tier 3")}
+                                 inp.truth, inp.truth_valid, "tier 3"),
+            "icp_step": hold_k5(s.stats["center3d"], s.stats["count"] > 0,
+                                inp.truth, inp.truth_valid,
+                                ICPConfig(max_iterations=T["icp_iterations"]),
+                                "tier 3")}
     for name, n in launches.items():
         rows[name]["launches"] = n
     add_fields(kernels, rows, "tier3")
@@ -1126,7 +1194,7 @@ def _pose_gap(traj, ref) -> float:
 def tier4_phase(dev, card, kernels):
     """The tier-4 SLAM job of benchmarks/tier4_slam.py at full size (100
     scans of 2,048 points) and scan-to-map on the same scans:
-    (a) slam_pipeline_ba in float32 through K3, stage by stage;
+    (a) slam_pipeline_ba in float32 through K3 and K5, stage by stage;
     (b) the same with the plain versions on the card, equal bit for bit;
     (c) in float64 (plain versions: K3 is float32 only) against JAX's
         float64 run -- closure pairs and n_landmarks equal, every pose
@@ -1135,7 +1203,8 @@ def tier4_phase(dev, card, kernels):
         two assertions on (a);
     (d) scan_to_map (grid NN, K3 fallback) in float32 through K3, equal to
         the plain run, and in float64 against JAX's float64 run;
-    (e) K3 against its plain version at the odometry shape, N = M = 2,048.
+    (e) K3 and K5 against their plain versions at the odometry shape,
+        N = M = 2,048.
     Returns the inputs, JAX's reference, the float64 run and the float32
     ATE tolerance.
     """
@@ -1156,19 +1225,24 @@ def tier4_phase(dev, card, kernels):
     job_s = time.perf_counter() - t0
     launches = read_launches()
     require(launches["nn_argmin"] > 0, "K3 did not launch in the tier-4 job")
+    require(launches["icp_step"] > 0, "K5 did not launch in the tier-4 job")
 
     # (b) plain versions on the card
     t0 = time.perf_counter()
     plain = tier4_job(inp, torch.float32, "torch")
     plain_s = time.perf_counter() - t0
+    plain_gaps = {key: (float((tr.r - plain.trajs[key].r).abs().max()),
+                        float((tr.t - plain.trajs[key].t).abs().max()))
+                  for key, tr in run.trajs.items()}
     for key in run.trajs:
         require(_same_traj(run.trajs[key], plain.trajs[key]),
-                f"tier-4 {key} poses differ from the plain run")
+                f"tier-4 {key} poses differ from the plain run: {plain_gaps}")
     require(run.pairs == plain.pairs, "closure pairs differ from the plain "
                                       "run")
     for key in ("graph_cost", "ba_cost", "n_landmarks"):
         require(torch.equal(run.stats[key], plain.stats[key]),
-                f"tier-4 {key} differs from the plain run")
+                f"tier-4 {key} differs from the plain run: "
+                f"{float(run.stats[key])} vs {float(plain.stats[key])}")
 
     # (c) float64 against JAX's float64 run; float32 ATEs against its ATEs
     t0 = time.perf_counter()
@@ -1232,9 +1306,13 @@ def tier4_phase(dev, card, kernels):
     query = se3.apply_rigid(torch.eye(3, device=dev), t_init,
                             sc[1]).contiguous()
     row = hold_k3(query, sc[0].contiguous(), sv[0], "tier 4")
+    # K5 at the odometry shape: icp's steps of pair (0, 1)
+    row5 = hold_k5(sc[1], sv[1], sc[0], sv[0], inp.cfg, "tier 4")
     add_fields(kernels, {"nn_argmin": {**row,
                                        "launches": launches["nn_argmin"],
-                                       "launches_s2m": s2m_launches}},
+                                       "launches_s2m": s2m_launches},
+                         "icp_step": {**row5,
+                                      "launches": launches["icp_step"]}},
                "tier4")
 
     print(json.dumps({
@@ -1306,15 +1384,18 @@ def grid_engine_phase(dev, card):
 
 def icp_grid_phase(dev, card, kernels):
     """(c) Grid ICP against brute-force ICP through K3 at 100,000 target and
-    source points, and against the JAX CPU constants: in float64 (the plain
-    versions, K3 being float32 only) to F64_ICP_GRID_TOL, so the loop,
-    weights and composition are JAX's; in float32 R to JAX's float32 run
-    and t to JAX's float64 answer. Returns the float32 grid ICP result."""
+    source points (the Python loop of both, float32), and against the JAX
+    CPU constants: in float64 (the plain versions, K3 being float32 only)
+    to F64_ICP_GRID_TOL, so the loop, weights and composition are JAX's; in
+    float32 R to JAX's float32 run and t to JAX's float64 answer. ``icp`` on
+    the card (K3 + K5) is held to the same two JAX numbers. Returns the
+    float32 grid ICP result."""
     import torch
 
     from tools.tier3_inputs import NN, nn_cell, nn_inputs
     from vtkcloudpoint_tpu_torch.config import ICPConfig
-    from vtkcloudpoint_tpu_torch.register.icp import icp
+    from vtkcloudpoint_tpu_torch.kernels.neighbor import nn_cuda
+    from vtkcloudpoint_tpu_torch.register.icp import icp, icp_loop
     from vtkcloudpoint_tpu_torch.register.nn_grid import (build_nn_grid,
                                                           icp_grid)
 
@@ -1330,7 +1411,13 @@ def icp_grid_phase(dev, card, kernels):
                         fallback_cap=NN["fallback_cap"])
 
     def brute_run():
-        return icp(src, sv, tgt, tv, cfg)
+        # icp_grid's Python loop with K3's correspondences: its float32
+        # solve, where icp on the card sums float64 moments (K5)
+        def correspond(p):
+            idx, d2 = nn_cuda(p, tgt, tv)
+            return idx, d2, sv
+
+        return icp_loop(src, sv, tgt, tv, cfg, None, None, correspond)
 
     build_ms = cuda_ms(lambda: build_nn_grid(tgt, tv, cell), 3)
     reset_launches()
@@ -1381,6 +1468,17 @@ def icp_grid_phase(dev, card, kernels):
     require(jax["dR"] <= JAX_ICP_GRID_TOL
             and jax["dt_f64"] <= F32_ICP_GRID_T_TOL,
             f"grid ICP R, t far from the JAX CPU results: {jax}")
+    on_card = icp(src, sv, tgt, tv, cfg)
+    jax_card = {"dR": gap(on_card.r.cpu(), JAX_ICP_GRID["icp_r"]),
+                "dt_f64": gap(on_card.t.cpu(), ref64["icp_t"]),
+                "iterations": int(on_card.iterations)}
+    require(jax_card["dR"] <= JAX_ICP_GRID_TOL
+            and jax_card["dt_f64"] <= F32_ICP_GRID_T_TOL,
+            f"icp on the card far from the JAX CPU results: {jax_card}")
+    # grid ICP's float32 solve against icp's float64 moments: reported, not
+    # held (PERF.md section 7)
+    jax_card["max_abs_dR_grid"] = float((on_card.r - res.r).abs().max())
+    jax_card["max_abs_dt_grid"] = float((on_card.t - res.t).abs().max())
 
     row = hold_k3(src[:NN["fallback_cap"]].contiguous(), tgt, tv,
                   "grid ICP fallback")
@@ -1394,6 +1492,7 @@ def icp_grid_phase(dev, card, kernels):
         "brute_iterations": int(brute.iterations),
         "max_abs_dR_brute": dr, "max_abs_dt_brute": dt,
         "max_abs_jax_f32": jax, "max_abs_jax_f64": f64,
+        "card_icp_from_jax": jax_card,
         "icp_error": float(res.error), "launches": launches,
         "build_ms": build_ms, "grid_wall_s": grid_s,
         "brute_wall_s": brute_s, "f64_wall_s": f64_s}))
@@ -1823,7 +1922,10 @@ def main():
     rows = {"dbscan_block": hold_k1(s.bc, s.bv, EPS, MIN_PTS, "tier 2"),
             "cluster_shapes": hold_k2(s.both, s.bval, MAX_HULL, "tier 2"),
             "nn_argmin": hold_k3(first_icp_query(s.stats, inp.truth),
-                                 inp.truth, inp.truth_valid, "tier 2")}
+                                 inp.truth, inp.truth_valid, "tier 2"),
+            "icp_step": hold_k5(s.stats["center3d"], s.stats["count"] > 0,
+                                inp.truth, inp.truth_valid, inp.icfg,
+                                "tier 2")}
     mods = kernel_modules()
     kernels = [{"name": name, "route": "cuda", "source": mods[name].SOURCE,
                 "replaces": mods[name].REPLACES, **row}

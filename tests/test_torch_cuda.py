@@ -21,6 +21,7 @@ from vtkcloudpoint_tpu_torch.config import (ClusterConfig, EngineConfig,
 from vtkcloudpoint_tpu_torch.engine import Engine
 from vtkcloudpoint_tpu_torch.kernels import build
 from vtkcloudpoint_tpu_torch.kernels import dbscan as k_dbscan
+from vtkcloudpoint_tpu_torch.kernels import icp as k_icp
 from vtkcloudpoint_tpu_torch.kernels import neighbor as k_nn
 from vtkcloudpoint_tpu_torch.kernels import shapes as k_shapes
 from vtkcloudpoint_tpu_torch.register.icp import icp
@@ -669,29 +670,33 @@ def test_nn_kernel_tier4_shape(gpu):
 
 
 def test_slam_pipeline_ba_on_card_equals_plain(gpu):
-    """slam_pipeline_ba through K3 and with the plain versions on the card:
-    every pose, cost and n_landmarks bit-equal (K3 equals nn_plain bit for
-    bit; every segment sum is deterministic); K3 launched."""
+    """slam_pipeline_ba through the kernels and with the plain versions on
+    the card: every pose, cost and n_landmarks bit-equal (K3 equals nn_plain
+    bit for bit; the card's ICP loop runs K5 or icp_step_plain, the same
+    float64 moments rounded to the same float32 state; every segment sum is
+    deterministic); K3 and K5 launched."""
     from vtkcloudpoint_tpu_torch.slam.trajectory import slam_pipeline_ba
 
     scans = torch.from_numpy(_slam_scans()).to(gpu)
     valid = torch.ones(scans.shape[:2], dtype=torch.bool, device=gpu)
     runs = {}
     for backend in ("torch", "auto"):
-        k_nn.launches = 0
+        k_nn.launches = k_icp.step_launches = 0
         out = slam_pipeline_ba(scans, valid, ICPConfig(max_iterations=20,
                                                        tol=1e-10),
                                loop_radius=2.5, gn_iterations=4,
                                landmark_eps=0.4, landmark_min_pts=6,
                                max_clusters_per_scan=16, ba_iterations=4,
                                backend=backend)
-        runs[backend] = (out, k_nn.launches)
-    (a, la), (b, lb) = runs["torch"], runs["auto"]
-    assert la == 0 and lb > 0
+        runs[backend] = (out, k_nn.launches, k_icp.step_launches)
+    (a, la, sa), (b, lb, sb) = runs["torch"], runs["auto"]
+    assert la == sa == 0 and lb >= sb > 0
+    gaps = [(float((x.r - y.r).abs().max()), float((x.t - y.t).abs().max()))
+            for x, y in zip(a[:3], b[:3])]
     for x, y in zip(a[:3], b[:3]):
-        assert torch.equal(x.r, y.r) and torch.equal(x.t, y.t)
+        assert torch.equal(x.r, y.r) and torch.equal(x.t, y.t), gaps
     for key in ("graph_cost", "ba_cost", "n_landmarks"):
-        assert torch.equal(a[3][key], b[3][key]), key
+        assert torch.equal(a[3][key], b[3][key]), (key, a[3][key], b[3][key])
     assert int(b[3]["n_landmarks"]) >= 4
 
 
@@ -952,3 +957,137 @@ def test_a_kernel_launch_lies_inside_its_span(gpu):
     assert launches
     for s, e in launches:
         assert span.start_ns <= s <= e <= span.end_ns
+
+
+# ---- the ICP step kernel K5 (kernels/icp.py) and the card's ICP loop ----
+
+def _step_inputs(gpu, shape):
+    """(source, source_valid, target, target_valid, r0, t0) of one ICP:
+    the stream's (1,024 centre rows, 450 valid, onto 512 truth points ~40 m
+    out), the survey's (2,048 x 2,048), one or no valid source, and 5,000
+    sources (three blocks of the kernel's reduction)."""
+    rng = np.random.default_rng(14)
+    if shape == "survey":
+        scans = _slam_scans(3, s=2, n=2048)
+        src, tgt = scans[1], scans[0]
+    else:
+        n, m = (5000, 2048) if shape == "blocks" else (1024, 512)
+        tgt = (rng.uniform(-5, 5, (m, 3)) + [40.0, 10.0, 2.0]).astype(
+            np.float32)
+        src = np.zeros((n, 3), np.float32)
+        k = min(n, m)
+        src[:k] = (tgt[:k] - [0.02, -0.01, 0.005]) @ _rot_z(0.01) \
+            + 0.001 * rng.standard_normal((k, 3))
+        if shape == "blocks":
+            src[k:] = src[rng.integers(0, k, n - k)] + 0.01
+    n_valid = {"stream": 450, "one": 1, "none": 0}.get(shape, len(src))
+    sv = np.zeros(len(src), bool)
+    sv[:n_valid] = True
+    r0 = _rot_z(-0.003).astype(np.float32)
+    t0 = np.float32([0.01, 0.0, -0.002])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(gpu)  # noqa
+    return (t(src.astype(np.float32)), t(sv), t(tgt),
+            torch.ones(len(tgt), dtype=torch.bool, device=gpu), t(r0), t(t0))
+
+
+def _rot_z(a):
+    return np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                     [0, 0, 1]])
+
+
+@pytest.mark.parametrize("shape", ["stream", "survey", "one", "none",
+                                   "blocks"])
+def test_icp_step_kernel_matches_plain(gpu, shape):
+    """Each step from one state and K3's answer: the kernel's R and t
+    within 1e-6 of icp_step_plain's, d within one ulp, the same iterations,
+    converged and done flags; steps past done (max_iterations 3) change
+    nothing in either."""
+    src, sv, tgt, tv, r0, t0 = _step_inputs(gpu, shape)
+    state = k_icp.init_state(r0, t0, src)
+    k_icp.step_launches = 0
+    for step in range(5):
+        idx, d2 = k_nn.nn_cuda(state.p, tgt, tv)
+        plain = k_icp.StepState(*(x.clone() for x in state))
+        k_icp.icp_step_cuda(state, idx, d2, src, sv, tgt, 1e-4, 3)
+        k_icp.icp_step_plain(plain, idx, d2, src, sv, tgt, 1e-4, 3)
+        torch.cuda.synchronize()
+        assert torch.equal(state.flags, plain.flags), (step, state.flags,
+                                                        plain.flags)
+        assert int(state.flags[3]) == 0                  # the ticket
+        torch.testing.assert_close(state.pose[:12], plain.pose[:12],
+                                   rtol=0, atol=1e-6)
+        dk, dp = float(state.pose[12]), float(plain.pose[12])
+        assert abs(dk - dp) <= np.spacing(np.float32(abs(dp))), (dk, dp)
+        if torch.equal(state.pose, plain.pose):
+            assert torch.equal(state.p, plain.p)
+    assert k_icp.step_launches == 5
+    assert int(state.flags[0]) <= 3 and int(state.flags[2]) == 1
+
+
+def test_icp_step_kernel_once_done_changes_nothing(gpu):
+    src, sv, tgt, tv, r0, t0 = _step_inputs(gpu, "stream")
+    state = k_icp.init_state(r0, t0, src)
+    state.flags[2] = 1
+    before = [x.clone() for x in state]
+    idx, d2 = k_nn.nn_cuda(state.p, tgt, tv)
+    k_icp.icp_step_cuda(state, idx, d2, src, sv, tgt, 1e-4, 30)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(before, state))
+
+
+def test_icp_on_card_matches_the_plain_loop(gpu):
+    """icp through the kernels (K3 + K5) against icp with backend="torch"
+    (the same card loop driving nn_plain and icp_step_plain), on a seeded
+    stream scan (PERF.md §2's stream limits: R 1.5e-6, t 4e-6) and on the
+    three odometry pairs of a seeded 4-scan survey (the odometry limits: R
+    5e-4, t 3e-3 m); iterations within one."""
+    xyz, motor, valid, truth, *_ = _scan_inputs(gpu)
+    res, reg = _stream_scan(xyz, motor, valid, truth)
+    tv = torch.ones(truth.shape[0], dtype=torch.bool, device=gpu)
+    inputs = [((res.center3d, res.count > 0, truth, tv),
+               ICPConfig(max_iterations=50), 1.5e-6, 4e-6)]
+    scans = torch.from_numpy(_slam_scans(2, s=4, n=2048)).to(gpu)
+    ones = torch.ones(2048, dtype=torch.bool, device=gpu)
+    cfg = ICPConfig(max_iterations=30, tol=1e-10)
+    for k in range(3):
+        inputs.append(((scans[k + 1], ones, scans[k], ones), cfg, 5e-4,
+                       3e-3))
+    for args, cfg, r_lim, t_lim in inputs:
+        k_icp.step_launches = 0
+        got = icp(*args, cfg)
+        assert k_icp.step_launches >= int(got.iterations) > 0
+        want = icp(*args, cfg, backend="torch")
+        for x in (got, want):
+            assert x.r.dtype == torch.float32 and x.r.is_cuda
+            assert x.iterations.device.type == "cpu"
+        gap = (float((got.r - want.r).abs().max()),
+               float((got.t - want.t).abs().max()))
+        assert gap[0] <= r_lim and gap[1] <= t_lim, gap
+        assert abs(int(got.iterations) - int(want.iterations)) <= 1
+
+
+@pytest.mark.parametrize("tol,max_iterations", [(0.0, 13), (1e-4, 50)])
+def test_icp_on_card_reads_the_card_once_a_chunk(gpu, tol, max_iterations):
+    """With tol 0 the loop never converges and stops at max_iterations;
+    launched >= iterations, and the span icp reads the card once a chunk
+    of kernels.icp.chunk_schedule that it launched."""
+    from vtkcloudpoint_tpu_torch.utils import profiling as prof
+
+    src, sv, tgt, tv, r0, t0 = _step_inputs(gpu, "stream")
+    k3 = k_nn.launches
+    with prof.recording() as rec:
+        res = icp(src, sv, tgt, tv, ICPConfig(max_iterations=max_iterations,
+                                              tol=tol), r0=r0, t0=t0)
+    (span,) = [s for s in rec.spans if s.name == "icp"]
+    it, launched = span.counters["iterations"], span.counters["launched"]
+    assert it == int(res.iterations) and launched >= it
+    assert k_nn.launches - k3 == launched
+    chunks = k_icp.chunk_schedule(max_iterations)
+    n_reads = span.counters["host_syncs"]
+    assert launched == sum(chunks[:n_reads])
+    assert sum(chunks[:n_reads - 1]) < it
+    if tol == 0.0:
+        assert it == max_iterations == launched and not bool(res.converged)
+        assert n_reads == len(chunks) == 3
+    else:
+        assert bool(res.converged) and it < max_iterations

@@ -19,6 +19,7 @@ from vtkcloudpoint_tpu_torch.cluster import dbscan as td
 from vtkcloudpoint_tpu_torch.cluster.pipeline import ClusterResult, cluster_scan
 from vtkcloudpoint_tpu_torch.kernels import build
 from vtkcloudpoint_tpu_torch.kernels import dbscan as k_dbscan
+from vtkcloudpoint_tpu_torch.kernels import icp as k_icp
 from vtkcloudpoint_tpu_torch.kernels import neighbor as k_nn
 from vtkcloudpoint_tpu_torch.kernels import shapes as k_shapes
 from vtkcloudpoint_tpu_torch.ops.geometry import cluster_shapes
@@ -266,7 +267,8 @@ def test_cpu_engine_session_launches_no_kernel(one_thread):
     from vtkcloudpoint_tpu_torch.engine import Engine
 
     counters = [(k_dbscan, "launches"), (k_shapes, "launches"),
-                (k_nn, "launches"), (k_nn, "radius_launches")]
+                (k_nn, "launches"), (k_nn, "radius_launches"),
+                (k_icp, "step_launches")]
     for mod, name in counters:
         setattr(mod, name, 0)
     rng = np.random.default_rng(2)
@@ -291,7 +293,7 @@ def test_cpu_engine_session_launches_no_kernel(one_thread):
         eng.match(res, truth, reg)
     k_nn.radius_count(batch.motor, batch.valid, 0.08)
     assert int(res.n_clusters) > 0
-    assert [getattr(mod, name) for mod, name in counters] == [0, 0, 0, 0]
+    assert [getattr(mod, name) for mod, name in counters] == [0] * 5
 
 
 def test_build_is_keyed_by_sources_and_flags():

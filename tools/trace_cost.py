@@ -15,6 +15,7 @@ the call to the synchronised result. Prints JSON lines:
             and their waits by stage (the innermost named span outside
             ``sync``), noise sweeps and ICP iterations a scan, SLAM's host
             ms an ICP iteration outside its reads, the longest waits, and
+            ICP iterations launched (the card's loop, no-ops included) and
             K3's launches a job (kernels/neighbor.launches);
   check     the cost of one recording-off check, ns.
 ``--rehearse`` runs them at the benchmark tests' CPU sizes on the CPU.
@@ -79,6 +80,7 @@ def _records(spans, jobs):
         waits[k] = waits.get(k, 0.0) + s.duration_ns * 1e-6
     icp = {s.id: s for s in spans if s.name == "icp"}
     iters = sum(s.counters.get("iterations", 0) for s in icp.values())
+    launched = sum(s.counters.get("launched", 0) for s in icp.values())
     icp_host = sum(s.duration_ns for s in icp.values()) * 1e-6
     icp_wait = sum(s.duration_ns for s in reads if s.parent in icp) * 1e-6
     noise = {s.id for s in spans if s.name == "noise"}
@@ -96,6 +98,7 @@ def _records(spans, jobs):
         "sync_wait_ms_by_stage": {k: v / jobs
                                   for k, v in sorted(waits.items())},
         "icp_iterations_a_job": iters / jobs,
+        "icp_launched_a_job": launched / jobs,
         "icp_ms_a_job": icp_host / jobs,
         "icp_host_ms_per_iter": ((icp_host - icp_wait) / iters
                                  if iters else None),

@@ -25,7 +25,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("dbscan_block.cu", "shapes.cu", "nn.cu", "radius.cu")
+SOURCES = ("dbscan_block.cu", "shapes.cu", "nn.cu", "radius.cu",
+           "icp_step.cu")
 # headers the sources include (found beside them); part of the build's key
 HEADERS = ("bits.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -47,6 +48,8 @@ SIGNATURES = {
     "vtkcp_nn_argmin": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "vtkcp_nn_queries_per_block": (),
     "vtkcp_radius_count": (_P, _P, _I, _I, _I, _F, _P, _P),
+    "vtkcp_icp_partials": (_I,),
+    "vtkcp_icp_step": (_P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P, _P, _P),
 }
 
 _lib = None

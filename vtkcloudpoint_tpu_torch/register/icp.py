@@ -2,10 +2,17 @@
 vtkcloudpoint_tpu.register.icp: nn_correspond, icp, ransac_init,
 icp_ransac, icp_multistart).
 
-The JAX while_loop becomes a Python loop; reading ``converged`` syncs with
-the device once per iteration. Correspondences come from the nearest-
-neighbour kernel K3 on CUDA tensors (kernels/neighbor.py) and from its plain
-version on CPU tensors.
+The JAX while_loop becomes one of two loops. On CUDA float32 tensors with
+the Horn solver, ``icp`` keeps the iteration's state on the card: each
+iteration is the correspondence search and one step of kernels/icp.py's
+state transition, and the host reads the done flag once per chunk of
+iterations. Through the kernels those are two launches, K3
+(kernels/neighbor.py) and K5 (kernels/icp.py); with backend="torch" their
+plain versions, ``nn_plain`` and ``icp_step_plain``, compute the same
+function. Everywhere else (CPU tensors, the Kabsch solver,
+``nn_grid.icp_grid``) the Python loop of ``icp_loop`` runs, reading
+``converged`` once per iteration, with correspondences from K3 on CUDA
+tensors and from its plain version on CPU tensors.
 
 RANSAC and multi-start draw their randomness from an explicit
 ``torch.Generator`` (seeded 0 when none is given), never from the global
@@ -25,6 +32,7 @@ import torch
 
 from ..config import ICPConfig
 from ..device import DEFAULT_DEVICE, resolve_backend, resolve_device
+from ..kernels import icp as k_icp
 from ..kernels.neighbor import nn_cuda, nn_plain
 from ..ops import se3
 from ..utils import profiling as prof
@@ -49,31 +57,39 @@ def nn_correspond(query, ref, ref_valid, chunk: int = 2048,
     return idx, d2.to(query.dtype)
 
 
+def _start(source, source_valid, target, target_valid, cfg: ICPConfig,
+           r0, t0):
+    """The start pose (R, t): r0 or the identity; t0, or the valid
+    centroids matched under r0 (cfg.start_by_matching_centroids), or 0."""
+    dtype, dev = source.dtype, source.device
+    if r0 is None:
+        r0 = torch.eye(3, dtype=dtype, device=dev)
+    if t0 is None:
+        if cfg.start_by_matching_centroids:
+            w_src = source_valid.to(dtype)
+            mean_s = ((source * w_src[:, None]).sum(dim=0)
+                      / torch.clamp_min(w_src.sum(), 1.0))
+            w_tgt = target_valid.to(dtype)
+            mean_t = ((target * w_tgt[:, None]).sum(dim=0)
+                      / torch.clamp_min(w_tgt.sum(), 1.0))
+            t0 = mean_t - r0 @ mean_s
+        else:
+            t0 = torch.zeros(3, dtype=dtype, device=dev)
+    return r0, t0
+
+
 def icp_loop(source, source_valid, target, target_valid, cfg: ICPConfig,
              r0, t0, correspond):
-    """The ICP iteration of ``icp`` and ``nn_grid.icp_grid``.
-    ``correspond(p)`` gives (idx, d2, w) for the moved sources p: the
-    nearest target, its squared distance and the bool mask of the sources
-    that enter the solve and the error. Records a span ``icp`` counting
-    its ``iterations``."""
+    """The Python ICP loop: ``icp`` off the card's loop (CPU tensors, the
+    Kabsch solver) and ``nn_grid.icp_grid``. ``correspond(p)`` gives
+    (idx, d2, w) for the moved sources p: the nearest target, its squared
+    distance and the bool mask of the sources that enter the solve and the
+    error. Records a span ``icp`` counting its ``iterations``."""
     with prof.span("icp"):
         dtype, dev = source.dtype, source.device
-        w_src = source_valid.to(dtype)
-        n_src = torch.clamp_min(w_src.sum(), 1.0)
-        if r0 is None:
-            r0 = torch.eye(3, dtype=dtype, device=dev)
-        if t0 is None:
-            if cfg.start_by_matching_centroids:
-                mean_s = (source * w_src[:, None]).sum(dim=0) / n_src
-                w_tgt = target_valid.to(dtype)
-                mean_t = ((target * w_tgt[:, None]).sum(dim=0)
-                          / torch.clamp_min(w_tgt.sum(), 1.0))
-                t0 = mean_t - r0 @ mean_s
-            else:
-                t0 = torch.zeros(3, dtype=dtype, device=dev)
+        r, t = _start(source, source_valid, target, target_valid, cfg, r0,
+                      t0)
         solve = se3.horn_solve if cfg.solver == "horn" else se3.kabsch_solve
-
-        r, t = r0, t0
         d = prof.sync(torch.tensor, math.inf, dtype=dtype, device=dev)
         prev_d = d
         it = 0
@@ -101,14 +117,63 @@ def icp(source, source_valid, target, target_valid,
 
     source/target [N, 3]/[M, 3] padded, *_valid masks.
     Stops when |d - prev_d| < cfg.tol or after cfg.max_iterations, d being
-    the summed squared correspondence distance over valid sources.
+    the summed squared correspondence distance over valid sources. CUDA
+    float32 tensors with the Horn solver take ``icp_on_card``; everything
+    else ``icp_loop``.
     """
+    if (source.is_cuda and source.dtype == torch.float32
+            and target.dtype == torch.float32 and cfg.solver == "horn"):
+        return icp_on_card(source, source_valid, target, target_valid, cfg,
+                           r0, t0, chunk, backend)
+
     def correspond(p):
         idx, d2 = nn_correspond(p, target, target_valid, chunk, backend)
         return idx, d2, source_valid
 
     return icp_loop(source, source_valid, target, target_valid, cfg, r0, t0,
                     correspond)
+
+
+def icp_on_card(source, source_valid, target, target_valid, cfg: ICPConfig,
+                r0=None, t0=None, chunk: int = 2048, backend: str = "auto"):
+    """``icp`` on CUDA float32 tensors with the Horn solver: the state of
+    the iteration lives on the card, each iteration is a correspondence
+    search and a step (K3 and K5 through the kernels, ``nn_plain`` and
+    ``icp_step_plain`` with backend="torch"), and the host reads the flags
+    once per chunk of ``kernels.icp.chunk_schedule``. Iterations launched
+    after the loop is done are no-ops, so the result does not depend on the
+    chunks. Records a span ``icp`` counting its ``iterations`` (those that
+    ran, read from the card) and the iterations ``launched``, no-ops
+    included."""
+    if resolve_backend(backend, source.device) == "cuda":
+        nn, step = nn_cuda, k_icp.icp_step_cuda
+    else:
+        def nn(p, ref, ref_valid):
+            return nn_plain(p, ref, ref_valid, chunk)
+        step = k_icp.icp_step_plain
+    with prof.span("icp"):
+        r, t = _start(source, source_valid, target, target_valid, cfg, r0,
+                      t0)
+        source, target = source.contiguous(), target.contiguous()
+        source_valid = source_valid.contiguous()
+        state = k_icp.init_state(r, t, source)
+        it, converged = 0, False
+        for size in k_icp.chunk_schedule(cfg.max_iterations):
+            for _ in range(size):
+                idx, d2 = nn(state.p, target, target_valid)
+                step(state, idx, d2, source, source_valid, target, cfg.tol,
+                     cfg.max_iterations)
+            prof.count("launched", size)
+            it, converged, done = prof.sync(state.flags[:3].tolist)
+            if done:
+                break
+        prof.count("iterations", it)
+        # copies: the result shares no storage with the loop's state
+        return ICPResult(r=state.pose[:9].view(3, 3).clone(),
+                         t=state.pose[9:12].clone(),
+                         error=state.pose[12].clone(),
+                         iterations=torch.tensor(it, dtype=torch.int32),
+                         converged=torch.tensor(bool(converged)))
 
 
 def _generator(generator):
