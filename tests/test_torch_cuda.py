@@ -935,6 +935,58 @@ def test_every_host_read_goes_through_the_sync_helper(gpu, monkeypatch):
     assert int(outs["survey"][3]["n_landmarks"]) >= 4
 
 
+def test_import_on_card_equals_cpu_at_the_session_shape(gpu):
+    """The benchmark session's scan (500,000 rows, 32 gated, 64 repeated):
+    Engine.import_arrays on the card equals the numpy route on the card
+    (gate, convert, dedup_exact, from_arrays) bit for bit, and the same
+    import on the CPU bit for bit but for xyz, whose sin and cos differ by
+    an ulp between the CPU and the card (rtol 1e-6); its span counts the
+    rows and holds at most 3 host syncs."""
+    import json
+
+    from portbench.gen.session import session_scan
+    from vtkcloudpoint_tpu_torch.data.convert import motor_to_xyz, range_gate
+    from vtkcloudpoint_tpu_torch.data.pointbatch import PointBatch
+    from vtkcloudpoint_tpu_torch.io.loaders import dedup_exact
+    from vtkcloudpoint_tpu_torch.utils import profiling as prof
+
+    def load(path):
+        with open(os.path.join(os.path.dirname(__file__), "..", path)) as f:
+            return json.load(f)
+
+    motor, dist, _ = session_scan(
+        np.random.default_rng(1), np.random.default_rng(2),
+        load("portbench/configs/scan500k.json"),
+        load("portbench/traffic/session.json"))
+    want = Engine(EngineConfig(), device="cpu").import_arrays(motor, dist)
+    eng = Engine(EngineConfig(), device=gpu)
+    eng.import_arrays(motor, dist)
+    torch.cuda.synchronize()
+    with prof.recording() as rec:
+        got = eng.import_arrays(motor, dist)
+        torch.cuda.synchronize()
+    m, r = torch.from_numpy(motor).to(gpu), torch.from_numpy(dist).to(gpu)
+    keep = range_gate(r)
+    m, r = m[keep], r[keep]
+    xyz = motor_to_xyz(m, r).cpu().numpy()
+    idx, counts = dedup_exact(xyz)
+    route = PointBatch.from_arrays(
+        xyz[idx], motor=m.cpu().numpy()[idx], rng=r.cpu().numpy()[idx],
+        mult=counts.astype(np.int32), capacity=got.capacity, device=gpu)
+    for f in ("xyz", "motor", "rng", "label", "mult", "valid", "path_id"):
+        assert torch.equal(getattr(got, f), getattr(route, f)), f
+        if f == "xyz":
+            torch.testing.assert_close(got.xyz.cpu(), want.xyz, rtol=1e-6,
+                                       atol=1e-6)
+        else:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    (span,) = [s for s in rec.spans if s.name == "import_arrays"]
+    assert {k: span.counters[k] for k in ("rows", "kept", "unique")} == {
+        "rows": 500_000, "kept": 499_968, "unique": 499_904}
+    assert span.counters["host_syncs"] <= 3
+    assert got.capacity == 500_736
+
+
 def test_a_kernel_launch_lies_inside_its_span(gpu):
     """The runtime's launch of K3, on the profiler's clock, lies inside the
     program span that launched it."""

@@ -6,9 +6,13 @@ scan ingestion on the CPU.
 - range_gate, distance_window: bit-equal;
 - import_scan_arrays / import_scan_folder, with and without dedup, on scans
   with planted exact duplicates: valid, mult, path_id, motor, rng and names
-  bit-equal, xyz rtol 1e-6. Both packages get the same float32 arrays where
-  the caller passes arrays; from a folder the JAX package (x64 on under
-  tests/conftest.py) converts in float64 and the port in float32.
+  bit-equal, xyz rtol 1e-6; a capacity below the unique count raises;
+- the device dedup (ingest.dedup_rows) against loaders.dedup_exact, case by
+  case (-0.0 against 0.0, NaN rows), and the import against the numpy
+  route (gate, convert, dedup_exact, select) on the same xyz: bit-equal.
+Both packages get the same float32 arrays where the caller passes arrays;
+from a folder the JAX package (x64 on under tests/conftest.py) converts in
+float64 and the port in float32.
 """
 import dataclasses
 
@@ -24,6 +28,7 @@ from vtkcloudpoint_tpu.io import ingest as ji
 from vtkcloudpoint_tpu_torch.data import convert as tc
 from vtkcloudpoint_tpu_torch.data import pointbatch as tpb
 from vtkcloudpoint_tpu_torch.io import ingest as ti
+from vtkcloudpoint_tpu_torch.io.loaders import dedup_exact
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 FIELDS = ("xyz", "motor", "rng", "label", "mult", "valid", "path_id")
@@ -114,6 +119,82 @@ def test_import_scan_arrays(dedup, with_pid):
     assert int(b.count) == (n_in - 20 if dedup else n_in)
     assert int(b.mult.sum() - (b.capacity - b.count)) == n_in
     assert b.capacity == 1024
+    with pytest.raises(ValueError, match="capacity"):
+        ti.import_scan_arrays(motor, dist, cfg, capacity=int(b.count) - 1,
+                              path_id=pid, device="cpu")
+
+
+def _dedup_case(case):
+    """(motor f32 [n, 2], dist f32 [n], path_id i32 [n]) of a scan, or
+    xyz f32 [n, 3] rows for the dedup alone."""
+    rng = np.random.default_rng(len(case))
+    motor = rng.uniform(5, 25, (200, 2)).astype(np.float32)
+    dist = rng.uniform(40, 60, 200).astype(np.float32)
+    pid = (np.arange(200) // 50).astype(np.int32)
+    if case == "planted":
+        dist[[3, 50, 120]] = [0.0, 1500.0, 0.0]
+        src = rng.choice(150, 40, replace=False)
+        dst = 150 + rng.permutation(50)[:40]
+        motor[dst], dist[dst] = motor[src], dist[src]
+        motor[[160, 170]], dist[[160, 170]] = motor[3], dist[3]   # gated
+    elif case == "all_same":
+        motor[:], dist[:] = motor[0], dist[0]
+    elif case == "one_row":
+        motor, dist, pid = motor[:1], dist[:1], pid[:1]
+    elif case == "signed_zero":     # motor x 0.0 / -0.0: y is -0.0 / 0.0
+        motor[::2, 0], motor[1::2, 0] = 0.0, -0.0
+        motor[:, 1] = np.repeat(motor[:100:2, 1], 4)
+        dist[:] = np.repeat(dist[:50], 4)
+    elif case == "first_in_later_file":    # rows 0-49 (file 3) recur in
+        pid = 3 - pid                        # rows 150-199 (file 0)
+        motor[150:], dist[150:] = motor[:50], dist[:50]
+    elif case == "nan_rows":
+        xyz = rng.integers(0, 3, (300, 3)).astype(np.float32)
+        for col in range(3):
+            xyz[col::7, col] = np.nan
+        xyz[5::11] = np.nan
+        return xyz
+    return motor, dist, pid
+
+
+DEDUP_CASES = ("planted", "all_same", "no_duplicates", "one_row",
+               "signed_zero", "nan_rows", "first_in_later_file")
+
+
+@pytest.mark.parametrize("case", DEDUP_CASES)
+def test_dedup_rows_matches_dedup_exact(case):
+    """dedup_rows gives dedup_exact's rows and multiplicities; the import
+    gives the numpy route's batch (the first occurrence's file)."""
+    scan = _dedup_case(case)
+    if case == "nan_rows":
+        xyz = scan
+    else:
+        motor, dist, pid = scan
+        keep = tc.range_gate(_t(dist)).numpy()
+        xyz = tc.motor_to_xyz(_t(motor[keep]), _t(dist[keep])).numpy()
+    idx, counts = dedup_exact(xyz)
+    first, mult = (t.numpy() for t in ti.dedup_rows(_t(xyz)))
+    np.testing.assert_array_equal(np.flatnonzero(first), idx)
+    np.testing.assert_array_equal(mult[first], counts)
+    assert (mult[~first] == 1).all()
+    if case == "nan_rows":
+        assert len(idx) < len(xyz) and np.isnan(xyz[idx]).any()
+        return
+    if case == "signed_zero":
+        y = xyz[:, 1]
+        assert (y == 0).all() and np.signbit(y).any() and len(idx) == 50
+    if case == "first_in_later_file":
+        assert len(idx) == 150 and (pid[idx][:50] == 3).all()
+    b = ti.import_scan_arrays(motor, dist, path_id=pid, device="cpu")
+    got = b.to_numpy()
+    np.testing.assert_array_equal(got["xyz"], xyz[idx])
+    np.testing.assert_array_equal(got["motor"], motor[keep][idx])
+    np.testing.assert_array_equal(got["rng"], dist[keep][idx])
+    np.testing.assert_array_equal(got["path_id"], pid[keep][idx])
+    np.testing.assert_array_equal(got["mult"], counts)
+    assert (got["label"] == 0).all() and b.capacity == 1024
+    pad = ~b.valid.numpy()
+    assert (b.mult.numpy()[pad] == 1).all() and not b.xyz.numpy()[pad].any()
 
 
 @pytest.mark.parametrize("dedup", [True, False])
